@@ -1,0 +1,49 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package
+(checked in a fresh interpreter, since this test process has JAX loaded)."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import semantic_slam_mapping_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import semantic_slam_mapping_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    expected = len(list(pkgutil.walk_packages(
+        semantic_slam_mapping_torch.__path__,
+        semantic_slam_mapping_torch.__name__ + ".")))
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [str(expected), "[]"], res.stdout
+    assert expected >= 20
+
+
+CHIP_PROBE = """
+import sys
+import chip_smoke
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu")))
+"""
+
+
+def test_chip_smoke_imports_no_jax():
+    res = subprocess.run([sys.executable, "-c", CHIP_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
