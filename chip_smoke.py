@@ -13,14 +13,19 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    nvcc for sm_90a into build/torch_kernels/ (``-Xptxas -v`` prints its
    registers and spills).
 3. ``kernels``: holds each kernel against its plain PyTorch version on the
-   card at the main path's shapes, in float32 and bfloat16, and times both
-   with CUDA events (median of 7 after 2 warm-ups).
+   card, exactly (tolerance 0) and in the volume's dtype, at the main
+   path's shape in float32 and bfloat16, and at a few small and ragged
+   shapes; then times the kernel and each of its two launches with CUDA
+   events (median of 25 batches of 10 calls after 3 warm-ups; the 75 MB
+   volume exceeds the 50 MB L2, so it runs cold), and the launches of variants built with one
+   part switched off, to show what bounds it.
 4. ``slice``: renders 10 KITTI-size (376x1248) stereo frames of a
    fixed-seed synthetic street on the card and runs them through
    ``SlamSystem(cfg, device="cuda").process_stream`` with the default
    configuration (80 disparities, 11x11 window, bfloat16 cost volume, 512
    features, 200 RANSAC hypotheses). Every kernel launch count is zeroed
-   just before and read just after; each kernel must have been launched.
+   just before and read just after; each kernel must have been launched,
+   and every SGM aggregate of the run must be bfloat16.
    Every tracked frame must have a VO success, the trajectory's ATE RMSE
    against the rendered ground truth must be below 0.3 m, and the results
    must live on the card.
@@ -34,6 +39,7 @@ Any failure raises and the script exits non-zero without that last line.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -66,7 +72,21 @@ PEAK_F32_S = 67e12
 # a min-reduction term, 4 adds, 3 mins, 1 subtract and the add into the
 # four-direction sum
 SGM_OPS_PER_ELEMENT = 4 * 10
-SGM_RTOL, SGM_ATOL = 1e-5, 1e-3
+# what bounds the SGM kernel: variants of its source with one part switched
+# off (wrong numbers, timed only): no cp.async loads, no stores to device
+# memory, a lane's own minimum in place of the warp's redux.sync
+SGM_VARIANTS = {
+    "no_loads": ('  asm volatile("cp.async.cg.shared.global',
+                 '  if (0) asm volatile("cp.async.cg.shared.global'),
+    "no_stores": ("      if (active) Q::store(out, o);",
+                  "      if (o.x == 0x12345u) Q::store(out, o);"),
+    "no_redux": ("__uint_as_float(__reduce_min_sync(kFull, lm))",
+                 "__uint_as_float(lm)"),
+}
+# the small checks: ragged lines, a single row, a pixel stride the wrapper
+# pads, the widest D
+SGM_SMALL = ((37, 24, 16), (24, 37, 16), (1, 7, 13), (33, 20, 13),
+             (9, 40, 96))
 
 
 def emit(phase: str, **fields) -> None:
@@ -82,8 +102,10 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
-    """Median milliseconds of fn() on the card, by CUDA events."""
+def cuda_ms(fn, warmup: int = 3, reps: int = 25, batch: int = 1) -> float:
+    """Median milliseconds of fn() on the card, by CUDA events around
+    `batch` calls in a row (so that the card does not wait for the host
+    between calls of a short kernel), over `reps` such batches."""
     for _ in range(warmup):
         fn()
     times = []
@@ -91,10 +113,11 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -118,48 +141,102 @@ def phase_build() -> None:
     emit("build", seconds=round(time.time() - t, 2), libraries=[lib.name])
 
 
+def check_sgm(vol: torch.Tensor, p1: float, p2: float, label: str) -> float:
+    """Max abs error of the SGM kernel against its plain version; raises
+    unless the two agree exactly in the volume's dtype."""
+    out = sgm_cuda.sgm_aggregate4(vol, p1, p2)
+    ref = sgm_cuda.sgm_aggregate4_plain(vol, p1, p2)
+    torch.cuda.synchronize()
+    max_abs = float((out.float() - ref.float()).abs().max())
+    ok = out.dtype == ref.dtype == vol.dtype and torch.equal(out, ref)
+    emit("kernels", kernel="sgm_aggregate4", check=label,
+         dtype=str(vol.dtype).split(".")[-1], shape=list(vol.shape),
+         out_dtype=str(out.dtype).split(".")[-1], max_abs_err=max_abs,
+         tolerance=0.0, ok=ok)
+    if not ok:
+        raise AssertionError(f"sgm_aggregate4 ({label}, {vol.dtype}) "
+                             f"disagrees with its plain version: max abs "
+                             f"{max_abs}, {out.dtype}")
+    return max_abs
+
+
+def sgm_variant_ms(vol: torch.Tensor, p1: float, p2: float) -> dict:
+    """Milliseconds of the vertical and the horizontal launch of each
+    SGM_VARIANTS build, on the main path's bf16 volume."""
+    H_, W_, D_ = vol.shape
+    vsum, out = torch.empty_like(vol), torch.empty_like(vol)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for name, (old, new) in SGM_VARIANTS.items():
+        src = sgm_cuda.SOURCE.read_text()
+        if old not in src:
+            raise AssertionError(f"variant {name}: no {old!r} in the source")
+        build = sgm_cuda.BUILD_DIR / "variants"
+        build.mkdir(parents=True, exist_ok=True)
+        (build / f"{name}.cu").write_text(src.replace(old, new))
+        lib = build / f"lib{name}.so"
+        subprocess.run([sgm_cuda._nvcc(), *sgm_cuda.NVCC_FLAGS, "-o",
+                        str(lib), str(build / f"{name}.cu")], check=True,
+                       timeout=120)
+        fn = ctypes.CDLL(str(lib)).sgm_aggregate_pass
+        fn.argtypes = sgm_cuda._library().sgm_aggregate_pass.argtypes
+        fn.restype = ctypes.c_int
+
+        def launch(horizontal, addend, dest):
+            if fn(vol.data_ptr(), addend, dest.data_ptr(), H_, W_, D_, D_,
+                  p1, p2, 1, horizontal, stream):
+                raise RuntimeError(f"variant {name} failed to launch")
+
+        res[name] = {
+            "vertical_ms": cuda_ms(lambda: launch(0, None, vsum), batch=10),
+            "horizontal_ms": cuda_ms(lambda: launch(1, vsum.data_ptr(), out),
+                                     batch=10)}
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = SlamConfig().sgbm
     p1, p2 = cfg.p1 / 16.0, cfg.p2 / 16.0
     D = cfg.num_disparities
-    base = torch.rand((H, W, D), generator=gen, device="cuda") * 200.0
     row = {"name": "sgm_aggregate4", "route": "cuda",
            "source": "semantic_slam_mapping_torch/csrc/sgm_aggregate.cu",
            "replaces": "semantic_slam_mapping_tpu/ops/pallas/sgm_pallas.py:74",
            "library_ms": None}
-    errs = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        vol = base.to(dt).contiguous()
-        out = sgm_cuda.sgm_aggregate4(vol, p1, p2)
-        ref = sgm_cuda.sgm_aggregate4_plain(vol, p1, p2)
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        max_abs = float(diff.max())
-        max_rel = float((diff / ref.abs().clamp(min=1e-6)).max())
-        ok = bool((diff <= SGM_ATOL + SGM_RTOL * ref.abs()).all())
-        emit("kernels", kernel="sgm_aggregate4", dtype=name,
-             shape=[H, W, D], max_abs_err=max_abs, max_rel_err=max_rel,
-             rtol=SGM_RTOL, atol=SGM_ATOL, ok=ok)
-        if not ok:
-            raise AssertionError(f"sgm_aggregate4 ({name}) disagrees with "
-                                 f"its plain version: max abs {max_abs}")
-        errs[name] = max_abs
-    # times on the main path's input: the bf16 volume
+    errs = []
+    for shape in SGM_SMALL:
+        small = torch.rand(shape, generator=gen, device="cuda") * 200.0
+        for dt in (torch.float32, torch.bfloat16):
+            errs.append(check_sgm(small.to(dt), 7.0, 50.0, "small"))
+    base = torch.rand((H, W, D), generator=gen, device="cuda") * 200.0
+    for dt in (torch.float32, torch.bfloat16):
+        errs.append(check_sgm(base.to(dt).contiguous(), p1, p2, "main"))
+
+    # times on the main path's input: the bf16 volume, each launch alone
+    # and the two together
     vol = base.to(torch.bfloat16).contiguous()
-    ms = cuda_ms(lambda: sgm_cuda.sgm_aggregate4(vol, p1, p2))
+    vsum, out = torch.empty_like(vol), torch.empty_like(vol)
+    vertical_ms = cuda_ms(lambda: sgm_cuda.sgm_pass(
+        vol, vsum, D, p1, p2, horizontal=False), batch=10)
+    horizontal_ms = cuda_ms(lambda: sgm_cuda.sgm_pass(
+        vol, out, D, p1, p2, horizontal=True, addend=vsum), batch=10)
+    variants = sgm_variant_ms(vol, p1, p2)
+    ms = cuda_ms(lambda: sgm_cuda.sgm_aggregate4(vol, p1, p2), batch=10)
     plain_ms = cuda_ms(lambda: sgm_cuda.sgm_aggregate4_plain(vol, p1, p2),
                        warmup=1, reps=5)
-    n_bytes = vol.numel() * vol.element_size() + vol.numel() * 4
+    # the contract's bytes: the volume read once, the aggregate (in the
+    # volume's dtype) written once
+    n_bytes = 2 * vol.numel() * vol.element_size()
     n_ops = vol.numel() * SGM_OPS_PER_ELEMENT
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
-    row.update(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+    row.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    emit("kernels", kernel="sgm_aggregate4", dtype="bfloat16", ms=ms,
-         plain_ms=plain_ms, bound_ms=row["bound_ms"],
-         bound_by=row["bound_by"], bytes=n_bytes, ops=n_ops,
-         library_ms=None)
+    emit("kernels", kernel="sgm_aggregate4", dtype="bfloat16",
+         shape=[H, W, D], ms=ms, vertical_ms=vertical_ms,
+         horizontal_ms=horizontal_ms, variants_ms=variants, plain_ms=plain_ms,
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"], bytes=n_bytes,
+         ops=n_ops, library_ms=None)
     return row
 
 
@@ -189,19 +266,36 @@ def phase_slice(card: str):
         warm.process_frame(left, right)
     torch.cuda.synchronize()
 
-    sgm_cuda.sgm_aggregate4.launches = 0
+    # sgbm.compute looks _aggregate up at each call: record the dtype of
+    # every aggregate the main path makes
+    agg_dtypes = []
+    aggregate = sgbm._aggregate
+
+    def recording_aggregate(vol, sgbm_cfg):
+        agg = aggregate(vol, sgbm_cfg)
+        agg_dtypes.append(agg.dtype)
+        return agg
+
     system = SlamSystem(cfg, device="cuda")
-    t = time.time()
-    system.process_stream(frames, depth=6)
-    torch.cuda.synchronize()
-    seconds = time.time() - t
-    launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    sgbm._aggregate = recording_aggregate
+    try:
+        sgm_cuda.sgm_aggregate4.launches = 0
+        t = time.time()
+        system.process_stream(frames, depth=6)
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    finally:
+        sgbm._aggregate = aggregate
 
     tracked = N_FRAMES - 1
     if launches["sgm_aggregate4"] != 2 * tracked:
         raise AssertionError(f"sgm_aggregate4 launched "
                              f"{launches['sgm_aggregate4']} times for "
                              f"{tracked} tracked frames, expected 2 each")
+    if agg_dtypes != [torch.bfloat16] * tracked:
+        raise AssertionError(f"SGM aggregates of the main path: {agg_dtypes}"
+                             f", expected {tracked} in bfloat16")
     log = system.frame_log
     if len(log) != tracked or not all(f.vo_success for f in log):
         raise AssertionError(f"VO failed on a frame: {log}")
@@ -219,7 +313,8 @@ def phase_slice(card: str):
     emit("slice", frames=N_FRAMES, tracked=tracked,
          seconds=seconds, frames_per_s=N_FRAMES / seconds,
          ms_per_tracked_frame=seconds / tracked * 1e3,
-         launches=launches, ate_rmse_m=ate, ate_bound_m=ATE_BOUND_M,
+         launches=launches, aggregate_dtype="bfloat16", ate_rmse_m=ate,
+         ate_bound_m=ATE_BOUND_M,
          n_inliers=[f.n_inliers for f in log],
          n_matches=[f.n_matches for f in log],
          moving_px_per_frame=[f.n_moving for f in log],

@@ -8,11 +8,14 @@ with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the root of
 the checkout, keyed by a hash of the source and flags, and loaded with
 ``ctypes``. Nothing is built when this module is imported.
 
-:func:`sgm_aggregate4` launches the kernel for a CUDA tensor (two launches:
-the vertical and the horizontal pair of directions) and counts each launch
-in ``sgm_aggregate4.launches``. For a CPU tensor it runs
-:func:`sgm_aggregate4_plain`, the same recurrence as a loop over the scan
-axis; it never falls back to it for a CUDA tensor.
+:func:`sgm_aggregate4` returns, in the volume's dtype, the Pallas kernel's
+contract ``r(r(vf) + r(vb)) + r(r(hf) + r(hb))``: each directional path
+(carried in float32) rounded to the volume's dtype, and each sum taken in
+float32 and rounded again. For a CUDA tensor it launches the kernel twice
+(the vertical pair into a scratch sum, then the horizontal pair added to
+it) and counts each launch in ``sgm_aggregate4.launches``. For a CPU tensor
+it runs :func:`sgm_aggregate4_plain`, the same recurrence as a loop over
+the scan axis; it never falls back to it for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "sgm_aggregate.cu"
@@ -65,17 +69,49 @@ def build(verbose: bool = False) -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     fn = lib.sgm_aggregate_pass
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
+def sgm_pass(vol: torch.Tensor, dest: torch.Tensor, D: int, p1: float,
+             p2: float, horizontal: bool,
+             addend: torch.Tensor | None = None) -> None:
+    """One launch of the kernel on the current stream: the vertical
+    (``horizontal=False``) or horizontal pair of directions of a padded
+    (H, W, Dp) volume into ``dest``, ``r(f + b)`` or, with ``addend``,
+    ``r(addend + r(f + b))``. Counts the launch in
+    ``sgm_aggregate4.launches``."""
+    H, W, Dp = vol.shape
+    with torch.cuda.device(vol.device):
+        err = _library().sgm_aggregate_pass(
+            vol.data_ptr(), None if addend is None else addend.data_ptr(),
+            dest.data_ptr(), H, W, D, Dp, float(p1), float(p2),
+            int(vol.dtype == torch.bfloat16), int(horizontal),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sgm_aggregate_pass launch failed: cudaError {err}")
+    sgm_aggregate4.launches += 1
+
+
+def _padded(vol: torch.Tensor) -> torch.Tensor:
+    """The volume with its pixel stride padded with +inf to whole 16-byte
+    vectors and its storage 16-byte aligned, as the kernel reads it
+    (``vol`` itself when it already is)."""
+    vec = 16 // vol.element_size()
+    pad = -vol.shape[-1] % vec
+    if pad or vol.data_ptr() % 16:
+        return F.pad(vol, (0, pad), value=float("inf"))
+    return vol
+
+
 def sgm_aggregate4(vol: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
-    """Sum of the four axis-aligned SGM path costs of an (H, W, D) cost
-    volume, as an (H, W, D) float32 tensor."""
+    """The four-direction SGM aggregate of an (H, W, D) cost volume
+    (non-negative costs), as an (H, W, D) tensor of the volume's dtype."""
     if vol.device.type == "cpu":
         return sgm_aggregate4_plain(vol, p1, p2)
     if vol.device.type != "cuda":
@@ -85,23 +121,16 @@ def sgm_aggregate4(vol: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
                          f"bfloat16 volume, got {tuple(vol.shape)} {vol.dtype}")
     if not vol.is_contiguous():
         raise ValueError("sgm_aggregate4 takes a contiguous volume")
-    H, W, D = vol.shape
+    D = vol.shape[-1]
     if not 1 <= D <= MAX_DISPARITIES:
         raise ValueError(f"sgm_aggregate4 takes 1..{MAX_DISPARITIES} "
                          f"disparities, got {D}")
-    fn = _library().sgm_aggregate_pass
-    out = torch.empty((H, W, D), dtype=torch.float32, device=vol.device)
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for horizontal in (0, 1):
-            err = fn(vol.data_ptr(), out.data_ptr(), H, W, D, float(p1),
-                     float(p2), int(vol.dtype == torch.bfloat16),
-                     horizontal, stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"sgm_aggregate_pass launch failed: cudaError {err}")
-            sgm_aggregate4.launches += 1
-    return out
+    src = _padded(vol)
+    vsum = torch.empty_like(src)
+    out = torch.empty_like(src)
+    sgm_pass(src, vsum, D, p1, p2, horizontal=False)
+    sgm_pass(src, out, D, p1, p2, horizontal=True, addend=vsum)
+    return out if src.shape[-1] == D else out[..., :D].contiguous()
 
 
 sgm_aggregate4.launches = 0
@@ -131,11 +160,13 @@ def _sgm_paths(cost: torch.Tensor, p1: float,
 def sgm_aggregate4_plain(vol: torch.Tensor, p1: float,
                          p2: float) -> torch.Tensor:
     """The plain PyTorch version of :func:`sgm_aggregate4`: the exact
-    recurrence on the volume and on its transpose, summed in float32 in the
-    kernel's order."""
+    recurrence in float32 on the volume and on its transpose, each path
+    rounded to the volume's dtype and summed in it in the contract's
+    order."""
     v = vol.float()
     vf, vb = _sgm_paths(v, p1, p2)
     hf, hb = _sgm_paths(v.transpose(0, 1), p1, p2)
-    out = vf + vb
-    out = out + hf.transpose(0, 1)
-    return out + hb.transpose(0, 1)
+    dt = vol.dtype
+    vert = vf.to(dt) + vb.to(dt)
+    horz = hf.to(dt) + hb.to(dt)
+    return (vert + horz.transpose(0, 1)).contiguous()

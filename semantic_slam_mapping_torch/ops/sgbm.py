@@ -9,9 +9,9 @@ uniqueness ratio; the left-right check from the same aggregate; and the
 speckle filter by connected components. Output convention as OpenCV's:
 disparity in pixels, INVALID (-1) where rejected.
 
-The aggregate is float32 whatever the volume's dtype. The TPU path rounds
-it to the volume's dtype (bfloat16 by default); with
-``cost_dtype="float32"`` the two agree to rounding.
+The aggregate is in the volume's dtype (``cost_dtype``, bfloat16 by
+default), rounded per direction as the TPU path's Pallas kernel rounds it,
+so the two agree bit for bit in either dtype.
 """
 
 from __future__ import annotations
@@ -71,7 +71,9 @@ def _cost_volume(left: torch.Tensor, right: torch.Tensor,
 
 
 def _aggregate(vol: torch.Tensor, cfg: SgbmConfig) -> torch.Tensor:
-    """Float32 sum of the four axis-aligned directional path costs."""
+    """Sum of the four axis-aligned directional path costs, in the volume's
+    dtype: ``(r(vf) + r(vb)) + (r(hf) + r(hb))``, each path and each sum
+    rounded to it (see ``sgm_cuda.sgm_aggregate4``)."""
     n = 8 if cfg.full_dp else cfg.num_directions
     if n == 8:
         raise NotImplementedError(
