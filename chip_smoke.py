@@ -17,20 +17,42 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    path's shape in float32 and bfloat16, and at a few small and ragged
    shapes; then times the kernel and each of its two launches with CUDA
    events (median of 25 batches of 10 calls after 3 warm-ups; the 75 MB
-   volume exceeds the 50 MB L2, so it runs cold), and the launches of variants built with one
-   part switched off, to show what bounds it.
+   volume exceeds the 50 MB L2, so it runs cold), and the launches of
+   variants built with one part switched off, to show what bounds it.
 4. ``slice``: renders 10 KITTI-size (376x1248) stereo frames of a
    fixed-seed synthetic street on the card and runs them through
    ``SlamSystem(cfg, device="cuda").process_stream`` with the default
    configuration (80 disparities, 11x11 window, bfloat16 cost volume, 512
-   features, 200 RANSAC hypotheses). Every kernel launch count is zeroed
-   just before and read just after; each kernel must have been launched,
-   and every SGM aggregate of the run must be bfloat16.
+   features, 200 RANSAC hypotheses) and no vocabulary. Every kernel launch
+   count is zeroed just before and read just after; each kernel must have
+   been launched, and every SGM aggregate of the run must be bfloat16.
    Every tracked frame must have a VO success, the trajectory's ATE RMSE
    against the rendered ground truth must be below 0.3 m, and the results
    must live on the card.
-5. ``stages``: times each stage of one frontend step on the card, then
+5. ``epoch``: the whole stereo SLAM at KITTI size with the default
+   configuration: 250 frames of a circular course (radius 15 m, 1.25 laps,
+   0.47 m a frame) through a fixed-seed loop world with 6 movers, a
+   vocabulary built by ``build_vocabulary`` (branching 10, depth 4) from
+   the ORB descriptors of every 12th frame, then
+   ``SlamSystem(cfg, vocab, device="cuda").process_stream(depth=6)`` and
+   ``finish()``. Counts zeroed just before and read just after: the SGM
+   kernel must run exactly twice per tracked frame. The run must make at
+   least 10 keyframes, accept a loop edge, fire a global optimisation
+   before ``finish``, keep its features and BoW database on the card, and
+   finish with an ATE RMSE below 0.8 m. Prints frames/s, the stage timer,
+   the counts, and the device-busy share of one profiled keyframe epoch.
+6. ``stages``: times each stage of one frontend step on the card, then
    profiles one step: device-busy time, idle share, launches, top kernels.
+7. ``candidates``: card time and launches of the keyframe epoch's
+   kernel candidates (Hamming matching, batched PnP, the vocabulary
+   descent, the LM + PCG solve) at the epoch's shapes, per call and per
+   keyframe, beside one PyTorch call computing the same function where
+   there is one.
+8. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
+   with fixed samples, ORB, the PnP gate and the pose-graph solve on the
+   card and on the host CPU with the same inputs from one KITTI-size frame
+   pair, and the pose-graph solve twice on the card; prints each
+   tolerance and error, and raises on a miss.
 
 Then the kernels line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi gives them, and last ``{"ok": true, "device": ...}``.
@@ -40,6 +62,7 @@ Any failure raises and the script exits non-zero without that last line.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,13 +72,16 @@ import time
 import numpy as np
 import torch
 
+from semantic_slam_mapping_torch import pipeline
+from semantic_slam_mapping_torch.backend import looper, pnp
+from semantic_slam_mapping_torch.backend import pose_graph as pg
 from semantic_slam_mapping_torch.config import SlamConfig
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
 from semantic_slam_mapping_torch.frontend import uvdisparity as uvd
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics
 from semantic_slam_mapping_torch.io import synthetic
-from semantic_slam_mapping_torch.ops import sgbm
+from semantic_slam_mapping_torch.ops import matching, orb, sgbm
 from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
 from semantic_slam_mapping_torch.pipeline import SlamSystem
 from semantic_slam_mapping_torch.utils.metrics import ate_rmse
@@ -64,6 +90,12 @@ T0 = time.time()
 H, W = 376, 1248
 N_FRAMES = 10
 ATE_BOUND_M = 0.3
+# the epoch phase: a 250-frame circular course, 0.47 m a frame
+N_EPOCH = 250
+LOOP_RADIUS_M = 15.0
+LOOP_LAPS = 1.25
+EPOCH_ATE_BOUND_M = 0.8
+VOCAB_EVERY = 12
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
 # tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -397,13 +429,417 @@ def phase_stages(frames) -> None:
          device_events=len(dev_events), top_device_ms=dict(top))
 
 
+def device_launches(fn) -> int:
+    """CUDA kernels one call of fn launches (profiler count)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def loop_camera(height: int, width: int) -> SlamConfig:
+    """The default configuration, its intrinsics scaled to the image size
+    (KITTI's at 376x1248)."""
+    cfg = SlamConfig()
+    s = width / W
+    cam = dataclasses.replace(cfg.camera, fx=cfg.camera.fx * s,
+                              fy=cfg.camera.fy * s, cx=cfg.camera.cx * s,
+                              cy=cfg.camera.cy * s)
+    return cfg.replace(camera=cam)
+
+
+def render_loop(cfg: SlamConfig, n_frames: int, height: int, width: int,
+                device: str):
+    """The epoch phase's sequence, rendered in chunks on ``device``:
+    (host frames [(left, right)], ground-truth poses)."""
+    K = Intrinsics.from_config(cfg.camera)
+    gen = torch.Generator(device=device).manual_seed(7)
+    world = synthetic.make_loop_world(gen, n_boxes=48, radius=LOOP_RADIUS_M,
+                                      n_moving=6, device=device)
+    poses = synthetic.loop_trajectory(n_frames, radius=LOOP_RADIUS_M,
+                                      laps=LOOP_LAPS, pitch_amp=0.006,
+                                      device=device)
+    frames = []
+    for start in range(0, n_frames, 25):
+        seq = synthetic.render_sequence(K, world, poses[start:start + 25],
+                                        height, width, start_index=start)
+        frames += list(zip(seq["left"].cpu().numpy(),
+                           seq["right"].cpu().numpy()))
+    return frames, poses.cpu().numpy().astype(np.float64)
+
+
+def loop_vocabulary(cfg: SlamConfig, frames, device: str):
+    """The vocabulary of the sequence itself: ORB descriptors of every
+    VOCAB_EVERY-th frame, clustered to branching 10, depth 4."""
+    up = SlamSystem(cfg, device=device)._upload_gray
+    descs = []
+    for left, _ in frames[::VOCAB_EVERY]:
+        f = orb.extract(up(left), cfg.orb)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    return looper.build_vocabulary(np.concatenate(descs), branching=10,
+                                   depth=4)
+
+
+class CallCounter:
+    """Counts the calls of module functions during a run (to give the
+    epoch's calls per keyframe of each kernel candidate)."""
+
+    def __init__(self, targets):
+        self.targets = targets        # {name: (module, attribute)}
+        self.calls = {name: 0 for name in targets}
+        self.saved = {}
+
+    def __enter__(self):
+        for name, (mod, attr) in self.targets.items():
+            fn = getattr(mod, attr)
+            self.saved[name] = fn
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[name])
+
+
+def run_epoch(cfg: SlamConfig, frames, vocab, device: str):
+    """The main path: process_stream(depth=6) then finish(), with the
+    kernel launch counts zeroed just before and read just after."""
+    system = SlamSystem(cfg, vocab=vocab, device=device)
+    counter = CallCounter({
+        "solve_pnp_lazy": (pnp, "solve_pnp_lazy"),
+        "transform_sparse": (looper, "transform_sparse"),
+        "optimize": (pg, "optimize")})
+    with counter:
+        sgm_cuda.sgm_aggregate4.launches = 0
+        t = time.time()
+        system.process_stream(frames, depth=6)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stream_s = time.time() - t
+        globals_before_finish = system.n_global_optimizations
+        traj = system.finish()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    return dict(system=system, traj=traj, stream_s=stream_s,
+                seconds=seconds, launches=launches, calls=counter.calls,
+                globals_before_finish=globals_before_finish)
+
+
+def profile_epoch(system: SlamSystem) -> dict:
+    """One keyframe epoch in isolation, under the profiler: a keyframe
+    inserted at the newest frame and all its deferred work drained, on an
+    idle card. Device-busy time against the host wall time."""
+    out, (left, right) = system.last_result, system._prev
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        system._insert_keyframe(out, system.trajectory[-1], left, right)
+        system._drain_all()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_events": len(dev)}
+
+
+def phase_epoch(card: str, device: str = "cuda", height: int = H,
+                width: int = W, n_frames: int = N_EPOCH) -> dict:
+    cfg = loop_camera(height, width)
+    t = time.time()
+    frames, gt = render_loop(cfg, n_frames, height, width, device)
+    emit("epoch", step="rendered", frames=len(frames),
+         shape=[height, width], seconds=round(time.time() - t, 2))
+    t = time.time()
+    vocab = loop_vocabulary(cfg, frames, device)
+    emit("epoch", step="vocabulary", leaves=vocab.n_leaves,
+         seconds=round(time.time() - t, 2))
+
+    run = run_epoch(cfg, frames, vocab, device)
+    system, traj = run["system"], run["traj"]
+    tracked = n_frames - 1
+    kfs = system.keyframes
+    ate = ate_rmse(traj, gt)
+    n_kf = max(len(kfs), 1)
+    fields = dict(
+        frames=n_frames, tracked=tracked, shape=[height, width],
+        seconds=run["seconds"], stream_seconds=run["stream_s"],
+        frames_per_s=n_frames / run["seconds"],
+        ms_per_frame=run["seconds"] / n_frames * 1e3,
+        launches=run["launches"], keyframes=len(kfs),
+        edges=system.n_edges, loop_edges=system.n_loop_edges,
+        loop_candidate_inliers=system.loop_candidate_inliers,
+        loop_edge_inliers=system.loop_edge_inliers,
+        loop_verify_log=system.loop_verify_log,
+        global_optimizations=system.n_global_optimizations,
+        global_optimizations_before_finish=run["globals_before_finish"],
+        local_optimizations=system.n_local_optimizations,
+        recoveries=system.n_recoveries,
+        vo_failures=sum(not f.vo_success for f in system.frame_log),
+        calls=run["calls"],
+        calls_per_keyframe={k: v / n_kf for k, v in run["calls"].items()},
+        ate_rmse_m=ate, ate_bound_m=EPOCH_ATE_BOUND_M,
+        ate_rmse_odometry_m=ate_rmse(np.stack(system.trajectory), gt),
+        timer={k: {"calls": v["calls"], "mean_ms": v["mean_ms"],
+                   "total_s": v["total_s"]}
+               for k, v in system.timer.summary().items()},
+        card=card)
+    if device == "cuda":
+        fields["profiled_epoch"] = profile_epoch(system)
+    emit("epoch", **fields)
+
+    if device == "cuda" and run["launches"]["sgm_aggregate4"] != 2 * tracked:
+        raise AssertionError(f"sgm_aggregate4 launched "
+                             f"{run['launches']['sgm_aggregate4']} times "
+                             f"for {tracked} tracked frames, expected 2 "
+                             "each")
+    if len(kfs) < 10:
+        raise AssertionError(f"{len(kfs)} keyframes, expected >= 10")
+    if system.n_loop_edges < 1:
+        raise AssertionError("no loop edge was accepted")
+    if run["globals_before_finish"] < 1:
+        raise AssertionError("no global optimisation before finish()")
+    if not np.all(np.isfinite(traj)) or not ate < EPOCH_ATE_BOUND_M:
+        raise AssertionError(f"ATE {ate} m >= {EPOCH_ATE_BOUND_M} m")
+    on_card = [*kfs[-1].feats_dev, *kfs[-1].bow_dev, system._db_idx,
+               system._db_w, kfs[-1].left_dev]
+    if device == "cuda" and not all(x.device.type == "cuda"
+                                    for x in on_card):
+        raise AssertionError("keyframe features or the BoW database are "
+                             "not on the card")
+    return {"launches": run["launches"], "system": system,
+            "calls": run["calls"], "vocab": vocab}
+
+
+def phase_candidates(epoch: dict) -> None:
+    """Card time and launches of the epoch's kernel candidates (K7-K10 of
+    ROADMAP.md) at the epoch's own shapes: the newest keyframe against the
+    five before it, its BoW, and one global solve of the final graph."""
+    system, vocab = epoch["system"], epoch["vocab"]
+    cfg, K = system.cfg, system.K
+    kfs = system.keyframes
+    kf, refs = kfs[-1], kfs[-6:-1]
+    n_kf = len(kfs)
+    kf_xy, kf_desc, _, kf_val = kf.feats_on(system.device)
+    xy_r, desc_r, xyz_r, val_r = (torch.stack(x) for x in zip(
+        *[r.feats_on(system.device) for r in refs]))
+    T_init = torch.from_numpy(np.stack([
+        np.linalg.inv(np.linalg.inv(r.pose) @ kf.pose).astype(np.float32)
+        for r in refs])).to(system.device)
+    feats = orb.extract(kf.left_dev.float(), cfg.orb)  # the BoW's input
+    vocab = vocab.to(system.device)
+    g, table, mask = final_graph(system)
+
+    cands = {
+        "K7 hamming_matrix+knn2_ratio": (
+            lambda: matching.knn2_ratio(matching.hamming_matrix(
+                desc_r, kf_desc, val_r, kf_val), cfg.orb.knn_match_ratio),
+            lambda: torch.cdist(desc_r.float(), kf_desc.float(), p=0),
+            "solve_pnp_lazy"),
+        "K8 solve_pnp_lazy (5 refs)": (
+            lambda: pnp.solve_pnp_lazy(desc_r, xyz_r, val_r, kf_desc, kf_xy,
+                                       kf_val, K, T_init, cfg.pnp,
+                                       cfg.orb.knn_match_ratio),
+            None, "solve_pnp_lazy"),
+        "K9 transform_sparse": (
+            lambda: looper.transform_sparse(vocab, feats.desc, feats.valid,
+                                            cfg.looper.scoring_level),
+            None, "transform_sparse"),
+        "K10 optimize (global)": (
+            lambda: pg.optimize(g, mask, cfg.pose_graph,
+                                iters=cfg.pose_graph.global_iters,
+                                table=table),
+            None, "optimize"),
+    }
+    rows = {}
+    for name, (fn, lib, calls_key) in cands.items():
+        ms = cuda_ms(fn, warmup=1, reps=5)
+        launches = device_launches(fn)
+        per_kf = epoch["calls"][calls_key] / n_kf
+        rows[name] = {
+            "ms": ms, "launches_per_call": launches,
+            "calls_per_keyframe": per_kf, "ms_per_keyframe": ms * per_kf,
+            "launches_per_keyframe": launches * per_kf,
+            "library_ms": cuda_ms(lib, warmup=1, reps=5) if lib else None}
+    emit("candidates", keyframes=n_kf, graph_vertices=int(g.poses.shape[0]),
+         graph_edges=int(g.edge_valid.sum()), rows=rows)
+
+
+def final_graph(system: SlamSystem):
+    """The device graph, gather table and global mask that a global
+    optimisation of the system's graph solves (as _maybe_optimize builds
+    them)."""
+    n = len(system.keyframes)
+    nv, ne = 64, 128
+    while nv < n:
+        nv *= 2
+    while ne < system.n_edges:
+        ne *= 2
+    host = pg.PoseGraph(*(a[:nv] if i < 2 else a[:ne]
+                          for i, a in enumerate(system.graph)))
+    table = pg.vertex_edge_table(host.edge_i, host.edge_j, host.edge_valid,
+                                 nv)
+    g = pg.PoseGraph(*(torch.from_numpy(np.ascontiguousarray(a))
+                       .to(system.device) for a in host))
+    return g, table, pg.global_free_mask(g)
+
+
+class Parity:
+    """Card-against-CPU checks: each records its error and tolerance and
+    raises on a miss."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def check(self, name: str, error: float, tolerance: float,
+              **extra) -> None:
+        ok = bool(error <= tolerance)
+        self.rows[name] = {"error": error, "tolerance": tolerance, "ok": ok,
+                           **extra}
+        emit("parity", check=name, error=error, tolerance=tolerance, ok=ok,
+             **extra)
+        if not ok:
+            raise AssertionError(f"parity {name}: error {error} > "
+                                 f"tolerance {tolerance}")
+
+
+def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
+    """The same inputs through the card and the host CPU. Tolerances are
+    stated a priori: float rounding may differ between the devices (fused
+    multiply-adds, reduction orders), so each check allows what that
+    rounding can move and nothing an algorithmic difference would."""
+    cfg = SlamConfig()
+    K = Intrinsics.from_config(cfg.camera)
+    par = Parity()
+    upload = SlamSystem(cfg, device=card_dev)._upload_gray
+    (pl, pr), (cl, cr) = frames[1], frames[2]
+    img = {dev: [upload(x).to(dev) for x in (cl, cr, pl, pr)]
+           for dev in (card_dev, "cpu")}
+
+    # SGBM: disparity on the jointly valid pixels, and the masks
+    sg = {dev: sgbm.compute(img[dev][0], img[dev][1], cfg.sgbm)
+          for dev in img}
+    gv, cv = sg[card_dev].valid.cpu(), sg["cpu"].valid
+    both = gv & cv
+    par.check("sgbm.compute disparity (jointly valid px)", float(
+        (sg[card_dev].disparity.cpu() - sg["cpu"].disparity)[both].abs()
+        .max()), 1e-3, valid_px=int(both.sum()))
+    par.check("sgbm.compute valid-mask disagreement (share of px)",
+              float((gv != cv).float().mean()), 1e-3)
+
+    # argmin over D of a bf16 aggregate with planted ties: the first
+    # minimum on both devices
+    gen = torch.Generator().manual_seed(0)
+    agg = (torch.rand((H, W, cfg.sgbm.num_disparities), generator=gen)
+           * 1000 + 10).to(torch.bfloat16)
+    d1 = torch.randint(0, 40, (H, W, 1), generator=gen)
+    d2 = d1 + torch.randint(1, 40, (H, W, 1), generator=gen)
+    agg.scatter_(-1, d1, 0.0)
+    agg.scatter_(-1, d2, 0.0)
+    for dev in (card_dev, "cpu"):
+        wrong = int((torch.argmin(agg.to(dev), dim=-1).cpu()
+                     != d1[..., 0]).sum())
+        par.check(f"argmin bf16 ties on {dev}: pixels not at the first "
+                  "minimum", wrong, 0)
+
+    # quad matching on the same images and disparity (the CPU's)
+    disp = torch.where(sg["cpu"].valid, sg["cpu"].disparity, 0.0)
+    qm = {dev: quadmatch.quad_match(*img[dev], cfg.quadmatch, cfg.gftt,
+                                    cfg.klt, disp.to(dev))
+          for dev in img}
+    mg = [x.cpu() for x in qm[card_dev]]
+    mc = list(qm["cpu"])
+    same_slot = mg[4] & mc[4] & (mg[2] == mc[2]).all(-1)
+    n_valid = max(int(mg[4].sum()), int(mc[4].sum()), 1)
+    par.check("quad_match: valid matches not matched on the other device "
+              "(share)", 1.0 - float(same_slot.sum()) / n_valid, 0.02,
+              valid=[int(mg[4].sum()), int(mc[4].sum())])
+    leg_err = max(float((a - b)[same_slot].abs().max())
+                  for a, b in zip(mg[:4], mc[:4]))
+    par.check("quad_match: points of common matches (px)", leg_err, 0.05)
+
+    # VO with fixed samples, on the same matches (the CPU's)
+    picks = vo._distinct3(torch.Generator().manual_seed(1),
+                          mc[4].sum(), cfg.vo.ransac_iters)
+    res = {dev: vo.estimate_motion(vo.QuadMatches(*(x.to(dev) for x in mc)),
+                                   K, None, cfg.vo, picks=picks)
+           for dev in (card_dev, "cpu")}
+    par.check("estimate_motion pose (fixed picks)", float(
+        (res[card_dev].T_delta.cpu() - res["cpu"].T_delta).abs().max()), 1e-4,
+        inliers=[int(res[d].n_inliers) for d in res])
+
+    # ORB on the same image
+    fo = {dev: orb.extract(img[dev][0], cfg.orb) for dev in img}
+    og, oc = [x.cpu() for x in fo[card_dev]], list(fo["cpu"])
+    kg = {tuple(p) for p in og[0][og[5]].tolist()}
+    kc = {tuple(p) for p in oc[0][oc[5]].tolist()}
+    par.check("orb.extract: keypoints in one set only (share)",
+              len(kg ^ kc) / max(len(kg), 1), 0.01,
+              keypoints=[len(kg), len(kc)])
+    same = og[5] & oc[5] & (og[0] == oc[0]).all(-1)
+    par.check("orb.extract: angle of common keypoints (rad)", float(
+        (og[2] - oc[2])[same].abs().max()), 1e-3)
+    par.check("orb.extract: descriptor bits differing (share, common "
+              "keypoints)", float((og[4] != oc[4])[same].float().mean()),
+              0.005)
+
+    # the PnP gate between the two frames: the current frame's features
+    # with 3D from its disparity against the previous frame's, on the CPU's
+    # features
+    f_ref, xyz_ref, v_ref = pipeline.extract_features(img["cpu"][0], disp,
+                                                      K, cfg.orb)
+    f_cur = orb.extract(img["cpu"][2], cfg.orb)
+    args = (f_ref.desc, xyz_ref, v_ref, f_cur.desc, f_cur.xy, f_cur.valid,
+            torch.eye(4))
+    pn = {dev: pnp.solve_pnp_lazy(*(a.to(dev) for a in args[:6]), K,
+                                  args[6].to(dev), cfg.pnp,
+                                  cfg.orb.knn_match_ratio)
+          for dev in (card_dev, "cpu")}
+    par.check("solve_pnp_lazy pose", float(
+        (pn[card_dev].T.cpu() - pn["cpu"].T).abs().max()), 1e-4,
+        inliers=[int(pn[d].n_inliers) for d in pn],
+        matches=[int(pn[d].n_matches) for d in pn],
+        success=[bool(pn[d].success) for d in pn])
+    par.check("solve_pnp_lazy inliers (count difference)",
+              abs(int(pn[card_dev].n_inliers) - int(pn["cpu"].n_inliers)), 0)
+
+    # the pose-graph solve of the epoch's final graph: twice on the card,
+    # identical; the CPU's result is printed beside it
+    g, table, mask = final_graph(system)
+    cfg_pg = system.cfg.pose_graph
+    a = pg.optimize(g, mask, cfg_pg, iters=cfg_pg.global_iters, table=table)
+    b = pg.optimize(g, mask, cfg_pg, iters=cfg_pg.global_iters, table=table)
+    c = pg.optimize(pg.PoseGraph(*(x.cpu() for x in g)), mask.cpu(), cfg_pg,
+                    iters=cfg_pg.global_iters, table=table)
+    par.check("pose_graph.optimize: two card runs (max abs difference)",
+              float((a.poses - b.poses).abs().max()), 0.0,
+              card_vs_cpu=float((a.poses.cpu() - c.poses).abs().max()),
+              vertices=len(system.keyframes))
+
+
 def main() -> int:
     info = phase_device()
     phase_build()
     row = phase_kernels()
-    launches, frames = phase_slice(info["card"])
+    _, frames = phase_slice(info["card"])
+    epoch = phase_epoch(info["card"])
     phase_stages(frames)
-    row["launches"] = launches[row["name"]]
+    phase_candidates(epoch)
+    phase_parity(frames, epoch["system"])
+    row["launches"] = epoch["launches"][row["name"]]
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)

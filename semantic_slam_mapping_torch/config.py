@@ -1,7 +1,7 @@
-"""Configuration of the stereo frontend, as plain dataclasses.
+"""Configuration of the stereo SLAM system, as plain dataclasses.
 
 A copy of the sections of ``semantic_slam_mapping_tpu/config.py`` that the
-frontend reads, with the same field names and defaults, so a JAX config
+frontend and the keyframe epoch read, with the same field names and defaults, so a JAX config
 converts one-to-one (``utils.convert.config_from_dict``). The port keeps
 its own copy: it imports nothing of the JAX package.
 
@@ -61,6 +61,22 @@ class SgbmConfig:
     speckle_cc_jumps: int = 1
     use_pallas: bool = True        # ignored: the port always runs its kernel
     cost_dtype: str = "bfloat16"   # cost-volume dtype: bfloat16 | float32
+
+
+@dataclass(frozen=True)
+class OrbConfig:
+    """ORB extractor parameters (8-level 1.2x pyramid, FAST 20/7)."""
+
+    n_features: int = 2000
+    scale_factor: float = 1.2
+    n_levels: int = 8
+    ini_th_fast: int = 20
+    min_th_fast: int = 7
+    knn_match_ratio: float = 0.8
+    max_candidates_per_level: int = 4096  # unused: a TPU budget knob
+    patch_size: int = 31       # rBRIEF sampling patch
+    half_patch_size: int = 15  # orientation intensity-centroid radius
+    edge_threshold: int = 19
 
 
 @dataclass(frozen=True)
@@ -128,6 +144,18 @@ class UVDisparityConfig:
 
 
 @dataclass(frozen=True)
+class PnpConfig:
+    """Motion-only bundle adjustment (4 rounds of 10 LM steps)."""
+
+    min_inliers: int = 10
+    min_matches: int = 15
+    rounds: int = 4
+    iters_per_round: int = 10
+    chi2_threshold: float = 5.991     # 95% chi-square, 2 DoF
+    huber_delta: float = 5.991 ** 0.5
+
+
+@dataclass(frozen=True)
 class TrackerConfig:
     """Tracking state machine parameters."""
 
@@ -137,17 +165,65 @@ class TrackerConfig:
 
 
 @dataclass(frozen=True)
+class PoseGraphConfig:
+    """Keyframe policy, edge weights and the LM + PCG pose-graph solver.
+
+    Nearby-keyframe edges are weighted at ``nearby_information_weight``
+    (not the odometry weight), and a loop edge's information scales with
+    its PnP inliers: ``information_weight * clip(inliers /
+    info_full_inliers, info_min_scale, 1)^2``. Both are deliberate
+    deviations of the JAX package from the C++ reference, kept here."""
+
+    nearby_keyframes: int = 5
+    keyframe_min_translation: float = 5.5
+    keyframe_min_rotation: float = 2.5
+    loop_accumulate_error: float = 4.0
+    local_accumulate_error: float = 1.0
+    local_window: int = 5             # vertices left free in local optimize
+    global_iters: int = 10            # LM iterations for global optimize
+    information_weight: float = 100.0
+    nearby_information_weight: float = 1.0
+    loop_min_inliers: int = 12
+    info_from_inliers: bool = True
+    info_full_inliers: float = 200.0
+    info_min_scale: float = 0.04
+    huber_delta: float = 1.0
+    pcg_iters: int = 100
+    pcg_tol: float = 1e-6             # unused: PCG runs pcg_iters steps
+    max_keyframes: int = 2048         # keyframe budget
+
+
+@dataclass(frozen=True)
+class LooperConfig:
+    """BoW loop detection: score gate, frame-gap gate and the vocabulary
+    tree's shape."""
+
+    vocab_file: str = ""
+    min_sim_score: float = 0.015
+    min_interval: int = 60
+    branching: int = 10
+    depth: int = 6
+    scoring_level: int = 4
+    bow_budget: int = 0               # words kept per keyframe (0: all)
+
+
+@dataclass(frozen=True)
 class SlamConfig:
-    """The frontend's part of the JAX package's ``SlamConfig``."""
+    """The stereo frontend's and keyframe epoch's part of the JAX
+    package's ``SlamConfig``."""
 
     camera: CameraConfig = field(default_factory=CameraConfig)
     sgbm: SgbmConfig = field(default_factory=SgbmConfig)
+    orb: OrbConfig = field(default_factory=OrbConfig)
     gftt: GfttConfig = field(default_factory=GfttConfig)
     klt: KltConfig = field(default_factory=KltConfig)
     quadmatch: QuadMatchConfig = field(default_factory=QuadMatchConfig)
     vo: VoConfig = field(default_factory=VoConfig)
     uvdisparity: UVDisparityConfig = field(default_factory=UVDisparityConfig)
+    pnp: PnpConfig = field(default_factory=PnpConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    pose_graph: PoseGraphConfig = field(default_factory=PoseGraphConfig)
+    looper: LooperConfig = field(default_factory=LooperConfig)
 
     def replace(self, **kwargs: Any) -> "SlamConfig":
         return dataclasses.replace(self, **kwargs)

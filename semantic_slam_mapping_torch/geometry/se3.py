@@ -30,6 +30,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (…, 3, 3) -> (…, 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula, with Taylor terms at theta -> 0."""
     theta2 = torch.sum(w * w, dim=-1)
@@ -166,3 +171,22 @@ def orthonormalize(T: torch.Tensor) -> torch.Tensor:
         RtR = R.transpose(-1, -2) @ R
         R = R @ (1.5 * eye - 0.5 * RtR)
     return make(R, T[..., :3, 3])
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    """Length of the translation of a relative pose."""
+    return torch.linalg.norm(T[..., :3, 3], dim=-1)
+
+
+def rotation_angle(T: torch.Tensor) -> torch.Tensor:
+    """Rotation angle (rad) of a relative pose."""
+    return torch.linalg.norm(so3_log(T[..., :3, :3]), dim=-1)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3) acting on [v, w] tangents: (…, 6, 6)."""
+    R = T[..., :3, :3]
+    tR = hat(T[..., :3, 3]) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)

@@ -1,12 +1,14 @@
 """Synthetic stereo world with exact ground truth.
 
-Counterpart of the street-world part of
-``semantic_slam_mapping_tpu/io/synthetic.py``: a ray-cast renderer over a
-ground plane, boxes and a backdrop, giving photoconsistent stereo pairs
-with ground-truth poses, depth, semantics and moving-object masks. It is
-the port's own source of KITTI-size frames. :func:`make_world` draws from
-a ``torch.Generator`` (it cannot replay ``jax.random``); :func:`render`
-takes any world's arrays, so a JAX-made world renders here too.
+Counterpart of ``semantic_slam_mapping_tpu/io/synthetic.py``: a ray-cast
+renderer over a ground plane, boxes and a backdrop, giving photoconsistent
+stereo pairs with ground-truth poses, depth, semantics and moving-object
+masks; a straight street and a circular loop course with its world. It is
+the port's own source of KITTI-size frames. :func:`make_world` and
+:func:`make_loop_world` draw from a ``torch.Generator`` (it cannot replay
+``jax.random``), so their worlds follow the same recipe with other draws;
+:func:`render` takes any world's arrays, so a JAX-made world renders here
+too.
 
 Conventions: camera x right, y down, z forward; world = first camera.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from semantic_slam_mapping_torch.geometry import se3
@@ -25,7 +28,7 @@ CLASS_SKY = 0
 CLASS_BUILDING = 1
 CLASS_ROAD = 4
 CLASS_CAR = 9
-CLASS_PEDESTRIAN = 10   # only in worlds carried across from JAX
+CLASS_PEDESTRIAN = 10
 
 
 class World(NamedTuple):
@@ -48,13 +51,28 @@ def _standing_boxes(cx, cz, w, ground):
     return torch.stack([mins, maxs], dim=1)
 
 
+def _moving_boxes(mx, mz, is_ped, ground):
+    """Standing boxes of movers: pedestrians (0.6 x 1.8 x 0.6 m) and cars
+    (2 x 1.5 x 3.2 m) at ground positions (mx, mz)."""
+    half = torch.where(is_ped[:, None],
+                       torch.tensor([[0.3, 0.9, 0.3]], device=mx.device),
+                       torch.tensor([[1.0, 0.75, 1.6]], device=mx.device))
+    mmin = torch.stack([mx - half[:, 0], ground - 2 * half[:, 1],
+                        mz - half[:, 2]], -1)
+    mmax = torch.stack([mx + half[:, 0], torch.full_like(mx, ground + 0.01),
+                        mz + half[:, 2]], -1)
+    cls = torch.where(is_ped, CLASS_PEDESTRIAN, CLASS_CAR).long()
+    return torch.stack([mmin, mmax], 1), cls
+
+
 def make_world(generator: torch.Generator, n_boxes: int = 12,
                camera_height: float = 1.65, backdrop_z: float = 120.0,
-               with_moving_box: bool = False,
+               with_moving_box: bool = False, n_moving: int = 0,
                device: str | torch.device = "cuda") -> World:
     """Random street: boxes standing on the ground on both sides of a
     corridor the camera drives through; ``with_moving_box`` adds a car in
-    the corridor ahead, moving laterally."""
+    the corridor ahead, moving laterally; ``n_moving`` adds that many
+    independently moving cars and pedestrians along the corridor."""
     gdev = generator.device
 
     def uniform(shape, lo, hi):
@@ -80,10 +98,105 @@ def make_world(generator: torch.Generator, n_boxes: int = 12,
                                                        device=gdev)])
         vel = torch.cat([vel, torch.tensor([[0.35, 0.0, 0.1]], device=gdev)])
 
+    if n_moving > 0:
+        mz = torch.linspace(12.0, 60.0, n_moving, device=gdev) \
+            + uniform((n_moving,), -2.0, 2.0)
+        mx = uniform((n_moving,), -2.5, 2.5)
+        is_ped = torch.arange(n_moving, device=gdev) % 3 == 2
+        # pedestrians stay near (5-20 m)
+        mz = torch.where(is_ped, 5.0 + 0.3 * (mz - 12.0), mz)
+        mboxes, mcls = _moving_boxes(mx, mz, is_ped, ground)
+        boxes = torch.cat([boxes, mboxes])
+        box_class = torch.cat([box_class, mcls])
+        # cars drive along z (with or against the camera), pedestrians
+        # cross
+        vz = torch.where(is_ped, 0.0, uniform((n_moving,), -0.5, 0.6))
+        vx = torch.where(is_ped, 0.25, 0.05 * torch.sign(mx))
+        vel = torch.cat([vel, torch.stack([vx, torch.zeros_like(vx), vz],
+                                          -1)])
+
+    moving = with_moving_box or n_moving > 0
     return World(boxes.to(device), box_class.to(device),
                  torch.tensor(ground, device=device),
                  torch.tensor(float(backdrop_z), device=device),
-                 vel.to(device) if with_moving_box else None)
+                 vel.to(device) if moving else None)
+
+
+def make_loop_world(generator: torch.Generator, n_boxes: int = 48,
+                    radius: float = 30.0, camera_height: float = 1.65,
+                    corridor: float = 3.5, n_moving: int = 0,
+                    backdrop_z: float = 1500.0,
+                    device: str | torch.device = "cuda") -> World:
+    """World for :func:`loop_trajectory`: half the boxes are wall segments
+    lining both sides of the ring (elongated along it, nearly touching,
+    so every view has near-field structure), the rest scattered inside
+    and outside it, plus ``n_moving`` cars and pedestrians on the ring's
+    first half. The backdrop sits at 1.5 km, where the texture's level of
+    detail flattens it."""
+    gdev = generator.device
+    pi = float(np.pi)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                           device=gdev)
+
+    ground = float(camera_height)
+    n_wall = n_boxes // 2
+    n_scatter = n_boxes - n_wall
+    # wall segments: alternately inner and outer, evenly spaced
+    wang = torch.arange(n_wall, device=gdev) * (2.0 * pi / n_wall) \
+        + uniform((n_wall,), -0.04, 0.04)
+    w_inner = torch.arange(n_wall, device=gdev) % 2 == 0
+    wdr = uniform((n_wall,), corridor + 2.0, corridor + 5.0)
+    wr = torch.clamp(torch.where(w_inner, radius - wdr, radius + wdr),
+                     min=2.0)
+    wcx = radius - wr * torch.cos(wang)
+    wcz = wr * torch.sin(wang)
+    seg_len = 2.0 * pi * radius / n_wall * uniform((n_wall,), 0.45, 0.7)
+    seg_th = uniform((n_wall,), 0.5, 1.0)
+    seg_h = uniform((n_wall,), 2.5, 5.0)
+    # axis-aligned boxes: extents from the tangent's projection
+    tx, tz = torch.abs(torch.sin(wang)), torch.abs(torch.cos(wang))
+    whx = 0.5 * (seg_len * tx + seg_th * (1 - tx))
+    whz = 0.5 * (seg_len * tz + seg_th * (1 - tz))
+    wall_boxes = _standing_boxes(wcx, wcz,
+                                 torch.stack([whx, seg_h * 0.5, whz], -1),
+                                 ground)
+
+    ang = uniform((n_scatter,), 0.0, 2.0 * pi)
+    inner = uniform((n_scatter,), 0.0, 1.0) < 0.5
+    dr = uniform((n_scatter,), corridor + 1.5, corridor + 13.0)
+    r = torch.clamp(torch.where(inner, radius - dr, radius + dr), min=2.0)
+    w = uniform((n_scatter, 3), 1.0, 4.0) * torch.tensor([1.0, 1.5, 1.0],
+                                                         device=gdev)
+    boxes = torch.cat([wall_boxes,
+                       _standing_boxes(radius - r * torch.cos(ang),
+                                       r * torch.sin(ang), w, ground)])
+    box_class = torch.full((n_boxes,), CLASS_BUILDING, dtype=torch.int64,
+                           device=gdev)
+    vel = torch.zeros((n_boxes, 3), device=gdev)
+
+    if n_moving > 0:
+        mang = torch.linspace(0.15, pi, n_moving, device=gdev) \
+            + uniform((n_moving,), -0.05, 0.05)
+        is_ped = torch.arange(n_moving, device=gdev) % 3 == 2
+        mboxes, mcls = _moving_boxes(radius - radius * torch.cos(mang),
+                                     radius * torch.sin(mang), is_ped, ground)
+        boxes = torch.cat([boxes, mboxes])
+        box_class = torch.cat([box_class, mcls])
+        # cars drift along the ring's tangent (sin, cos), pedestrians
+        # cross it
+        speed = torch.where(is_ped, 0.12, uniform((n_moving,), 0.2, 0.5))
+        tx, tz = torch.sin(mang), torch.cos(mang)
+        vx = torch.where(is_ped, 0.12 * tz, speed * tx)
+        vz = torch.where(is_ped, -0.12 * tx, speed * tz)
+        vel = torch.cat([vel, torch.stack([vx, torch.zeros_like(vx), vz],
+                                          -1)])
+
+    return World(boxes.to(device), box_class.to(device),
+                 torch.tensor(ground, device=device),
+                 torch.tensor(float(backdrop_z), device=device),
+                 vel.to(device) if n_moving > 0 else None)
 
 
 def _value_noise(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -228,13 +341,44 @@ def straight_trajectory(n_frames: int, speed: float = 0.8,
     return torch.stack(poses)
 
 
+def loop_trajectory(n_frames: int, radius: float = 30.0,
+                    laps: float = 1.2, pitch_amp: float = 0.0,
+                    revisit_offset: float = 0.0,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """(N, 4, 4) poses driving a circle of ``radius`` (centre to the
+    camera's right), heading along the tangent; ``laps`` > 1 revisits the
+    start. ``pitch_amp`` adds a sinusoidal platform pitch (rad);
+    ``revisit_offset`` (m) widens the radius on the second lap (a
+    smoothstep over 1/16 lap past 2 pi), so the revisit runs in a parallel
+    lane."""
+    pi = float(np.pi)
+    th = torch.linspace(0.0, 2.0 * pi * laps, n_frames, device=device)
+    ramp = torch.clamp((th - 2.0 * pi) / (pi / 8.0), 0.0, 1.0)
+    r_eff = radius + revisit_offset * (ramp * ramp * (3.0 - 2.0 * ramp))
+    pos = torch.stack([radius - r_eff * torch.cos(th), torch.zeros_like(th),
+                       r_eff * torch.sin(th)], dim=-1)
+    pitch = pitch_amp * torch.sin(th * 7.0)
+    cy, sy = torch.cos(th), torch.sin(th)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    one, zero = torch.ones_like(th), torch.zeros_like(th)
+    Ry = torch.stack([torch.stack([cy, zero, sy], -1),
+                      torch.stack([zero, one, zero], -1),
+                      torch.stack([-sy, zero, cy], -1)], -2)
+    Rx = torch.stack([torch.stack([one, zero, zero], -1),
+                      torch.stack([zero, cp, -sp], -1),
+                      torch.stack([zero, sp, cp], -1)], -2)
+    return se3.make(Ry @ Rx, pos)
+
+
 def render_sequence(K: Intrinsics, world: World, poses_w_c: torch.Tensor,
-                    height: int, width: int) -> dict:
+                    height: int, width: int, start_index: int = 0) -> dict:
     """Render a stereo sequence: a dict of stacked left/right (F, H, W)
-    images, left-camera depth/semantic/moving, and the poses."""
+    images, left-camera depth/semantic/moving, and the poses.
+    ``start_index`` offsets the movers' time base, so a long sequence can
+    be rendered in chunks."""
     frames = []
     for i in range(poses_w_c.shape[0]):
-        offs = (world.box_velocity * float(i)
+        offs = (world.box_velocity * float(start_index + i)
                 if world.box_velocity is not None else None)
         T = poses_w_c[i]
         left, depth, sem, mov = render(K, T, world, height, width, offs)

@@ -1,7 +1,7 @@
-"""Shi-Tomasi (GFTT) corners with local and grid NMS and a fixed-budget
-top-K selection.
+"""Corner responses (Shi-Tomasi, Harris, FAST-9) with local and grid NMS
+and a fixed-budget top-K selection.
 
-Counterpart of the GFTT path of ``semantic_slam_mapping_tpu/ops/corners.py``.
+Counterpart of ``semantic_slam_mapping_tpu/ops/corners.py``.
 Ties are broken by flat index, lowest first, as ``lax.top_k`` and
 ``argmax`` do in the JAX package.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +35,64 @@ def shi_tomasi_response(img: torch.Tensor,
     ixy = im.box_blur(ix * iy, block_size)
     det_term = torch.sqrt(torch.square(ixx - iyy) + 4.0 * torch.square(ixy))
     return 0.5 * ((ixx + iyy) - det_term)
+
+
+def harris_response(img: torch.Tensor, block_size: int = 3,
+                    k: float = 0.04) -> torch.Tensor:
+    ix, iy = im.gradients(img)
+    ixx = im.box_blur(ix * ix, block_size)
+    iyy = im.box_blur(iy * iy, block_size)
+    ixy = im.box_blur(ix * iy, block_size)
+    tr = ixx + iyy
+    return (ixx * iyy - ixy * ixy) - k * tr * tr
+
+
+# FAST-16 circle offsets (dx, dy), radius 3, clockwise from 12 o'clock
+_FAST_OFFSETS = np.array([
+    (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
+    (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
+], np.int32)
+
+
+def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Shift so out[y, x] = img[y + dy, x + dx] (zero padded)."""
+    H, W = img.shape[-2:]
+    py0, py1 = max(dy, 0), max(-dy, 0)
+    px0, px1 = max(dx, 0), max(-dx, 0)
+    padded = F.pad(img, (px1, px0, py1, py0))
+    return padded[..., py1 + dy:py1 + dy + H, px1 + dx:px1 + dx + W]
+
+
+def fast_response(img: torch.Tensor, threshold: float,
+                  arc_length: int = 9) -> torch.Tensor:
+    """FAST-N corner response map (0 where not a corner): a pixel is a
+    corner iff ``arc_length`` contiguous circle pixels are all brighter
+    than c + t or all darker than c - t, found by log-doubling ANDs over
+    the circle; the score is the summed excess over the threshold."""
+    neigh = torch.stack([_shift(img, int(dy), int(dx))
+                         for dx, dy in _FAST_OFFSETS])       # (16, H, W)
+    d = neigh - img[None]
+    bright = d > threshold
+    dark = d < -threshold
+
+    def has_arc(m: torch.Tensor) -> torch.Tensor:
+        acc, run = m, 1
+        while run * 2 <= arc_length:
+            acc = acc & torch.roll(acc, -run, dims=0)
+            run *= 2
+        rem = arc_length - run
+        if rem > 0:
+            # overlapping windows: AND is idempotent
+            acc = acc & torch.roll(acc, -rem, dims=0)
+        return torch.any(acc, dim=0)
+
+    is_corner = has_arc(bright) | has_arc(dark)
+    score = torch.sum(torch.clamp(torch.abs(d) - threshold, min=0.0), dim=0)
+    H, W = img.shape[-2:]
+    ys = torch.arange(H, device=img.device)[:, None]
+    xs = torch.arange(W, device=img.device)[None, :]
+    interior = (ys >= 3) & (ys < H - 3) & (xs >= 3) & (xs < W - 3)
+    return torch.where(is_corner & interior, score, 0.0)
 
 
 def local_max_mask(response: torch.Tensor, size: int = 3) -> torch.Tensor:

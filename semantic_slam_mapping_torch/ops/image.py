@@ -71,15 +71,74 @@ def downsample2(img: torch.Tensor) -> torch.Tensor:
     return _sep_filter(img, k, k)[..., ::2, ::2]
 
 
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of an antialiased linear resize along
+    one axis, as ``jax.image.scale_and_translate`` builds them: a triangle
+    kernel widened by the downscale factor (not when upscaling), weights
+    normalised per output sample, samples outside the input zeroed."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+                * inv_scale - np.float32(0.0) * inv_scale - np.float32(0.5))
+    x = (np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+         / kernel_scale)
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+def resize_bilinear(img: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Linear resize of (..., H, W) to (..., H', W'), antialiased when it
+    downsamples: the weights of ``jax.image.resize(..., "bilinear")``
+    applied as two contractions (``F.interpolate`` does not promise the
+    same weights)."""
+    H, W = img.shape[-2:]
+    h, w = out_hw
+    x = img.float()
+    if h != H:
+        wy = torch.from_numpy(_resize_weights(H, h)).to(img.device)
+        x = torch.einsum("...yx,yo->...ox", x, wy)
+    if w != W:
+        wx = torch.from_numpy(_resize_weights(W, w)).to(img.device)
+        x = torch.einsum("...yx,xo->...yo", x, wx)
+    return x
+
+
+def resize_nearest(img: torch.Tensor,
+                   out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of (..., H, W), for label images: source
+    index floor((i + 0.5) * n_in / n_out), as ``jax.image.resize``."""
+    for axis, n_out in ((-2, out_hw[0]), (-1, out_hw[1])):
+        n_in = img.shape[axis]
+        if n_in == n_out:
+            continue
+        offs = np.floor(((np.arange(n_out, dtype=np.float32) + 0.5)
+                         * np.float32(n_in / n_out)).astype(np.float32))
+        img = torch.index_select(img, axis, torch.from_numpy(
+            offs.astype(np.int64)).to(img.device))
+    return img
+
+
 def build_pyramid(img: torch.Tensor, n_levels: int,
                   scale_factor: float = 2.0) -> List[torch.Tensor]:
-    """2x image pyramid, finest first (the KLT pyramid). The ORB pyramid
-    at scale 1.2 is not ported yet."""
-    if scale_factor != 2.0:
-        raise NotImplementedError("only the 2x (KLT) pyramid is ported")
+    """Image pyramid, finest first: 2x levels by the 5-tap blur and stride
+    (the KLT pyramid); any other factor (ORB's 1.2) by a sigma-0.8 blur of
+    the previous level and an antialiased resize to round(H / s^l)."""
     levels = [img]
-    for _ in range(1, n_levels):
-        levels.append(downsample2(levels[-1]))
+    H, W = img.shape[-2:]
+    for lvl in range(1, n_levels):
+        s = scale_factor ** lvl
+        h, w = max(8, int(round(H / s))), max(8, int(round(W / s)))
+        if scale_factor == 2.0:
+            levels.append(downsample2(levels[-1]))
+        else:
+            levels.append(resize_bilinear(
+                gaussian_blur(levels[-1], sigma=0.8), (h, w)))
     return levels
 
 

@@ -1,30 +1,213 @@
-"""The SLAM engine, frontend part: frames in, tracked trajectory out.
+"""The stereo SLAM engine: frames in, tracked and loop-corrected trajectory
+out.
 
-Counterpart of the stereo frontend of
-``semantic_slam_mapping_tpu/pipeline.py::SlamSystem``: ``_upload_gray``,
-``_dispatch_frame``, ``process_frame`` and the pipelined
-``process_stream``. Frame N + 1's frontend is queued on the device before
-frame N's host-side work reads its results, up to ``depth`` frames ahead.
+Counterpart of the stereo path of
+``semantic_slam_mapping_tpu/pipeline.py::SlamSystem``, without the map and
+SegNet. Per frame, the frontend (``frontend/tracker.py``) is queued on the
+card; ``process_stream`` keeps up to ``depth`` frames in flight before the
+oldest one's host-side work reads its results. That work
+(``_postprocess_frame``) reads the pose back, applies the correction
+transport, recovers a LOST tracker against the reference keyframes, and
+checks the keyframe gate. A keyframe epoch then runs, in this order:
 
-The keyframe epoch that hangs off ``_postprocess_frame`` in the JAX
-package (keyframe gate, ORB, PnP, loop closure, pose graph, map, lost
-recovery to a reference keyframe and the correction transport) is not
-ported yet: here ``_postprocess_frame`` appends the pose to the trajectory
-and logs the frame's tracking numbers.
+1. ORB features and their 3-D points from the disparity;
+2. the sparse BoW vector;
+3. the keyframe record, its float16 images kept on the card;
+4. the harvest of the previous epoch's deferred work;
+5. the odometry edge to the previous keyframe;
+6. the PnP edges to the nearby keyframes, queued now, harvested next epoch;
+7. BoW loop scoring, queued now; the candidates are picked and verified at
+   the next epoch (PnP gate, then the quad-match/VO re-measure or the
+   reverse PnP) and harvested the epoch after;
+8. the pose-graph optimisation when the accumulated chi^2 asks for it,
+   with the frontend re-anchor and its PnP refinement;
+9. the eviction of old keyframes' device images.
+
+``finish`` drains the deferred work, runs a forced global optimisation and
+exports every frame through its keyframe anchor.
+
+Deferred results are copied to pinned host memory behind a CUDA event as
+soon as they are queued, and read at the next epoch, so edges land one
+epoch late exactly as in the JAX package. The pose graph and the keyframe
+poses live on the host in numpy; the images, features and BoW database
+live on the device. The JAX package's deliberate deviations from the C++
+reference (tiered loop verification, loop information scaled by PnP
+inliers, the chi^2 trigger statistic) are kept as they are there.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 from collections import deque
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from semantic_slam_mapping_torch.config import SlamConfig
+from semantic_slam_mapping_torch.backend import looper as lp
+from semantic_slam_mapping_torch.backend import pnp as pnp_mod
+from semantic_slam_mapping_torch.backend import pose_graph as pg
+from semantic_slam_mapping_torch.config import OrbConfig, SlamConfig
 from semantic_slam_mapping_torch.device import resolve
-from semantic_slam_mapping_torch.frontend import tracker
-from semantic_slam_mapping_torch.geometry.camera import Intrinsics
+from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
+from semantic_slam_mapping_torch.geometry import se3_np
+from semantic_slam_mapping_torch.geometry.camera import (Intrinsics,
+                                                         triangulate_stereo)
+from semantic_slam_mapping_torch.ops import image as im
+from semantic_slam_mapping_torch.ops import orb
+from semantic_slam_mapping_torch.utils.timing import StageTimer
+
+log = logging.getLogger("semantic_slam_mapping_torch.pipeline")
+
+# newest keyframes whose float16 device images stay resident (~3 MB each
+# at KITTI size); older ones rebuild from their host copies when a loop
+# candidate needs them
+_DEV_CACHE_KEYFRAMES = 64
+
+
+def extract_features(left: torch.Tensor, disparity: torch.Tensor,
+                     K: Intrinsics, ocfg: OrbConfig):
+    """ORB features of a left image and each feature's camera-frame 3-D
+    point from the disparity; returns (features, xyz, valid), valid where
+    the feature has a disparity above 0.5 px."""
+    feats = orb.extract(left, ocfg)
+    d = im.bilinear_sample(disparity, feats.xy)
+    xyz = triangulate_stereo(K, feats.xy, torch.clamp(d, min=0.5))
+    return feats, xyz, feats.valid & (d > 0.5)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor without waiting for the device queue
+    (CUDA stages a pageable source before the call returns)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                        non_blocking=True)
+
+
+def _stage_to_host(tensors: Sequence[torch.Tensor]
+                   ) -> Callable[[], List[np.ndarray]]:
+    """Start copying small device results to pinned host memory as soon as
+    they are computed; the returned callable waits for the copies and gives
+    numpy arrays. A later harvest thus pays no wait on the device queue."""
+    if tensors[0].device.type != "cuda":
+        return lambda: [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read():
+        done.synchronize()
+        return [h.numpy() for h in host]
+    return read
+
+
+def _dev_img(kf: "Keyframe", attr: str, device: torch.device):
+    """Device float16 image of a keyframe, rebuilt from the host copy after
+    an eviction."""
+    dev = getattr(kf, attr + "_dev", None)
+    if dev is None:
+        dev = _upload(getattr(kf, attr + "_host"), device).half()
+        setattr(kf, attr + "_dev", dev)
+    return dev
+
+
+def _motion_size(d: np.ndarray):
+    """(translation norm, rotation angle in rad) of a relative pose."""
+    return (float(np.linalg.norm(d[:3, 3])),
+            float(np.arccos(np.clip(0.5 * (np.trace(d[:3, :3]) - 1.0),
+                                    -1.0, 1.0))))
+
+
+@dataclasses.dataclass
+class Keyframe:
+    """Keyframe record. Features, BoW and images live on the device
+    (``*_dev``); host copies (``*_host``) are made lazily, when a host
+    reader asks or the device copy is evicted."""
+
+    kf_id: int
+    frame_index: int
+    pose: np.ndarray              # (4, 4) T_w_c
+    bow_idx_host: Optional[np.ndarray] = None   # (B,) sorted word ids
+    bow_w_host: Optional[np.ndarray] = None     # (B,) tf-idf weights
+    bow_dev: Optional[tuple] = None             # (idx, w)
+    feat_xy_host: Optional[np.ndarray] = None     # (N, 2)
+    feat_desc_host: Optional[np.ndarray] = None   # (N, 256) uint8
+    feat_xyz_host: Optional[np.ndarray] = None    # (N, 3) camera frame
+    feat_valid_host: Optional[np.ndarray] = None  # (N,)
+    feats_dev: Optional[tuple] = None             # (xy, desc, xyz, valid)
+    left_host: Optional[np.ndarray] = None        # (H, W) float16
+    right_host: Optional[np.ndarray] = None
+    disparity_host: Optional[np.ndarray] = None
+    left_dev: Optional[torch.Tensor] = None
+    right_dev: Optional[torch.Tensor] = None
+    disparity_dev: Optional[torch.Tensor] = None
+
+    def _host(self, attr: str) -> Optional[np.ndarray]:
+        h = getattr(self, attr + "_host")
+        if h is None:
+            dev = getattr(self, attr + "_dev")
+            if dev is None:
+                return None
+            h = dev.cpu().numpy()
+            setattr(self, attr + "_host", h)
+        return h
+
+    @property
+    def bow_idx(self) -> Optional[np.ndarray]:
+        if self.bow_idx_host is None and self.bow_dev is not None:
+            self.bow_idx_host = self.bow_dev[0].cpu().numpy()
+        return self.bow_idx_host
+
+    @property
+    def bow_w(self) -> Optional[np.ndarray]:
+        if self.bow_w_host is None and self.bow_dev is not None:
+            self.bow_w_host = self.bow_dev[1].cpu().numpy()
+        return self.bow_w_host
+
+    def _feats_host(self, i: int, attr: str) -> Optional[np.ndarray]:
+        h = getattr(self, attr + "_host")
+        if h is None and self.feats_dev is not None:
+            h = self.feats_dev[i].cpu().numpy()
+            setattr(self, attr + "_host", h)
+        return h
+
+    @property
+    def feat_xy(self) -> np.ndarray:
+        return self._feats_host(0, "feat_xy")
+
+    @property
+    def feat_desc(self) -> np.ndarray:
+        return self._feats_host(1, "feat_desc")
+
+    @property
+    def feat_xyz(self) -> np.ndarray:
+        return self._feats_host(2, "feat_xyz")
+
+    @property
+    def feat_valid(self) -> np.ndarray:
+        return self._feats_host(3, "feat_valid")
+
+    @property
+    def left(self) -> np.ndarray:
+        return self._host("left")
+
+    @property
+    def right(self) -> np.ndarray:
+        return self._host("right")
+
+    @property
+    def disparity(self) -> np.ndarray:
+        return self._host("disparity")
+
+    def feats_on(self, device: torch.device) -> tuple:
+        """(xy, desc, xyz, valid) on the device (uploaded if evicted)."""
+        if self.feats_dev is not None:
+            return self.feats_dev
+        return tuple(_upload(a, device) for a in (
+            self.feat_xy, self.feat_desc, self.feat_xyz, self.feat_valid))
 
 
 class FrameLog(NamedTuple):
@@ -38,9 +221,13 @@ class FrameLog(NamedTuple):
 
 
 class SlamSystem:
-    """Single-process stereo SLAM engine (frontend only, for now)."""
+    """Single-process stereo SLAM engine. ``vocab`` (a
+    ``backend.looper.Vocabulary``, e.g. from ``build_vocabulary`` or
+    ``load_vocabulary``) turns loop detection on; without it the engine
+    keeps odometry and nearby-keyframe edges only."""
 
-    def __init__(self, cfg: SlamConfig, seed: int = 0,
+    def __init__(self, cfg: SlamConfig,
+                 vocab: Optional[lp.Vocabulary] = None, seed: int = 0,
                  device: str | torch.device = "cuda"):
         self.device = resolve(device)
         self.cfg = cfg
@@ -48,23 +235,81 @@ class SlamSystem:
         self.state = tracker.TrackerState.initial(cfg, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.vocab = vocab.to(self.device) if vocab is not None else None
+        self.keyframes: List[Keyframe] = []
+        # the graph lives on the host: insertion is fine-grained mutation;
+        # it goes to the device only to be optimised. Worst case per
+        # keyframe: 1 odometry + 5 nearby + 5 loop edges; 12 slots each.
+        M = cfg.pose_graph.max_keyframes
+        E = M * 12
+        self.graph = pg.PoseGraph(
+            poses=np.broadcast_to(np.eye(4, dtype=np.float32),
+                                  (M, 4, 4)).copy(),
+            vertex_valid=np.zeros(M, bool),
+            edge_i=np.zeros(E, np.int64), edge_j=np.zeros(E, np.int64),
+            edge_T=np.broadcast_to(np.eye(4, dtype=np.float32),
+                                   (E, 4, 4)).copy(),
+            edge_info=np.zeros(E, np.float32),
+            edge_valid=np.zeros(E, bool),
+            edge_is_loop=np.zeros(E, bool))
+        # continuations queued at epoch K, run at epoch K + 1
+        self._pending_work: List = []
+        # monotone eviction frontier, and keyframes whose device images
+        # were rebuilt for a loop candidate and need evicting again
+        self._evict_frontier = 0
+        self._rebuilt_kfs: dict = {}
+        self.n_edges = 0
+        self.local_error = 0.0
+        self.loop_error = 0.0
         self.trajectory: List[np.ndarray] = []
+        # per-frame anchor (kf_id, T_rel): frame pose = kf.pose @ T_rel, so
+        # finish() carries every optimisation to the whole trajectory
+        self._anchors: List = []
         self.frame_log: List[FrameLog] = []
         self.frame_count = 0
         self.last_result: Optional[tracker.FrameResult] = None
-        self._prev = None  # previous (left, right) device images
+        self.n_loop_edges = 0
+        # PnP inliers of the loop candidates that passed the PnP gate, and
+        # of the accepted loop edges
+        self.loop_candidate_inliers: List[int] = []
+        self.loop_edge_inliers: List[int] = []
+        # (pnp_inliers, viso_ok, dt_m, dr_deg, dt_rev_m) per candidate
+        self.loop_verify_log: List[tuple] = []
+        self.n_optimizations = 0
+        self.n_global_optimizations = 0
+        self.n_local_optimizations = 0
+        self.n_recoveries = 0
+        self._prev = None            # previous (left, right) device images
+        self._last_disparity = None  # disparity of the newest tracked frame
+        # dispatch and processing ordinals: a state rewrite while later
+        # frames are in flight is composed onto their poses when they are
+        # processed. _corrections holds (until_ordinal, C, exact).
+        self._dispatched = 0
+        self._processed = 0
+        self._corrections: List = []
+        # the reference keyframes of relocalisation (newest last)
+        self.ref_frames: deque = deque(maxlen=max(1, cfg.tracker.ref_frames))
+        # the loop BoW database on the device, (cap, B), grown in powers
+        # of two; row i is keyframe i
+        self._db_idx = None
+        self._db_w = None
+        self._db_n = 0
+        self.timer = StageTimer()
 
+    # ------------------------------------------------------------------
     def _upload_gray(self, img) -> torch.Tensor:
         """A host float image uploads as uint8 (a quarter of the bytes) and
-        becomes float32 in [0, 1] on the device; exact for images read from
-        8-bit files. Tensors and integer arrays are taken as they are."""
+        becomes float32 in [0, 1] on the device, as u8 * float32(1/255):
+        the JAX package's conversion under XLA, to the bit. Tensors and
+        integer arrays are taken as they are."""
         if isinstance(img, np.ndarray) and img.dtype in (np.float32,
                                                          np.float64):
             q = torch.from_numpy(
                 (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8))
             if self.device.type == "cuda":
                 q = q.pin_memory()
-            return q.to(self.device, non_blocking=True).float() / 255.0
+            q = q.to(self.device, non_blocking=True)
+            return q.float() * (1.0 / 255.0)
         return torch.as_tensor(img).to(self.device, torch.float32)
 
     def _dispatch_frame(self, left, right) -> Optional[tracker.FrameResult]:
@@ -75,6 +320,7 @@ class SlamSystem:
         if self._prev is None:
             self._prev = (left, right)
             self.trajectory.append(np.eye(4))
+            self._append_anchor(np.eye(4))
             self.frame_count += 1
             return None
         prev_left, prev_right = self._prev
@@ -82,40 +328,591 @@ class SlamSystem:
             self.state, left, right, prev_left, prev_right, self.K,
             self.generator, self.cfg)
         self._prev = (left, right)
+        self._last_disparity = out.disparity
+        self._dispatched += 1
         return out
 
-    def _postprocess_frame(self, out: tracker.FrameResult) -> None:
-        """Host-side per-frame work: read the pose and the frame's numbers
-        back and append them."""
-        pose = out.pose.detach().to("cpu", torch.float64).numpy()
-        status, success, n_matches, n_inliers, n_moving = torch.stack([
-            out.status.long(), out.vo_success.long(), out.n_matches.long(),
-            out.n_inliers.long(), out.moving_mask.sum()]).tolist()
+    def _postprocess_frame(self, out: tracker.FrameResult, left, right
+                           ) -> None:
+        """Host-side per-frame work: the pose and the frame's numbers are
+        read back, pending corrections applied, a LOST tracker recovered,
+        and the keyframe gate checked."""
+        with self.timer.stage("frontend"):
+            pose = out.pose.detach().to("cpu", torch.float64).numpy()
+            status, success, n_matches, n_inliers, n_moving = torch.stack([
+                out.status.long(), out.vo_success.long(),
+                out.n_matches.long(), out.n_inliers.long(),
+                out.moving_mask.sum()]).tolist()
+        self._processed += 1
+        if self._corrections:
+            for until, C, exact in self._corrections:
+                if (self._processed == until if exact
+                        else self._processed <= until):
+                    pose = C @ pose
+            self._corrections = [e for e in self._corrections
+                                 if e[0] > self._processed]
         self.trajectory.append(pose)
+        self._append_anchor(pose)
         self.frame_log.append(FrameLog(status, bool(success), n_matches,
                                        n_inliers, n_moving))
         self.frame_count += 1
         self.last_result = out
+
+        if status == tracker.LOST and self.ref_frames:
+            self._lost_recover(left, out.disparity)
+
+        if self._keyframe_due(self.trajectory[-1]):
+            self._insert_keyframe(out, self.trajectory[-1], left, right)
 
     def process_frame(self, left, right) -> Optional[tracker.FrameResult]:
         """Feed one stereo frame; returns its FrameResult (None for the
         first frame, which only primes the pair buffer)."""
         out = self._dispatch_frame(left, right)
         if out is not None:
-            self._postprocess_frame(out)
+            self._postprocess_frame(out, self._prev[0], self._prev[1])
         return out
 
     def process_stream(self, frames, depth: int = 6) -> None:
         """Pipelined loop over ``frames`` yielding (left, right, ...)
         tuples: up to ``depth`` frames are queued on the device before the
-        oldest one's results are read back. Results equal those of
-        process_frame."""
+        oldest one's host-side work runs, so a keyframe epoch overlaps the
+        next frames' frontends. Results equal those of process_frame up to
+        the correction transport of a rewrite while frames are in flight."""
         pending = deque()
         for item in frames:
             out = self._dispatch_frame(item[0], item[1])
             if out is not None:
-                pending.append(out)
+                pending.append((out, self._prev[0], self._prev[1]))
             while len(pending) > depth:
-                self._postprocess_frame(pending.popleft())
+                self._postprocess_frame(*pending.popleft())
         while pending:
-            self._postprocess_frame(pending.popleft())
+            self._postprocess_frame(*pending.popleft())
+
+    # ------------------------------------------------------------------
+    def _adjust_state(self, new_pose: np.ndarray):
+        """Rewrite the tracker's pose (status OK, lost count 0)."""
+        self.state = tracker.adjust(self.state, _upload(
+            np.asarray(new_pose, np.float32), self.device))
+
+    def _state_pose(self) -> np.ndarray:
+        return self.state.pose.detach().to("cpu", torch.float64).numpy()
+
+    def _append_anchor(self, pose: np.ndarray):
+        if self.keyframes:
+            kf = self.keyframes[-1]
+            self._anchors.append(
+                (kf.kf_id, np.linalg.inv(kf.pose) @ pose))
+        else:
+            self._anchors.append((-1, pose.copy()))
+
+    def _rewrite_last(self, pose: np.ndarray, anchor_kf=None):
+        """Rewrite the newest trajectory entry and its anchor relation."""
+        self.trajectory[-1] = np.asarray(pose)
+        if anchor_kf is not None:
+            self._anchors[-1] = (anchor_kf.kf_id,
+                                 np.linalg.inv(anchor_kf.pose) @ pose)
+        elif self.keyframes:
+            kf = self.keyframes[-1]
+            self._anchors[-1] = (kf.kf_id, np.linalg.inv(kf.pose) @ pose)
+
+    def _keyframe_due(self, pose) -> bool:
+        """The first frame; then translation > keyframe_min_translation or
+        rotation > keyframe_min_rotation relative to the last keyframe."""
+        if not self.keyframes:
+            return True
+        rel = np.linalg.inv(self.keyframes[-1].pose) @ np.asarray(pose)
+        dt, dr = _motion_size(rel)
+        return (dt > self.cfg.pose_graph.keyframe_min_translation
+                or dr > self.cfg.pose_graph.keyframe_min_rotation)
+
+    def _extract_features(self, left, disparity):
+        return extract_features(left, disparity, self.K, self.cfg.orb)
+
+    # ------------------------------------------------------------------
+    def _insert_keyframe(self, out, pose, left, right):
+        cfg = self.cfg
+        kf_id = len(self.keyframes)
+        if kf_id >= cfg.pose_graph.max_keyframes:
+            log.warning("keyframe budget exhausted; dropping keyframe")
+            return
+        with self.timer.stage("kf/features"):
+            feats, xyz, feat_valid = self._extract_features(
+                left, out.disparity)
+        with self.timer.stage("kf/bow"):
+            bow = (lp.transform_sparse(self.vocab, feats.desc, feats.valid,
+                                       cfg.looper.scoring_level,
+                                       budget=cfg.looper.bow_budget)
+                   if self.vocab is not None else None)
+        with self.timer.stage("kf/store"):
+            kf = self._store_keyframe(out, pose, left, right, kf_id, feats,
+                                      xyz, feat_valid, bow)
+
+        # the previous epoch's deferred work first: its device programs
+        # have finished behind the frontends by now
+        with self.timer.stage("kf/harvest"):
+            self._drain_pending()
+
+        if kf_id > 0:
+            prev = self.keyframes[kf_id - 1]
+            self._add_edge(kf_id - 1, kf_id,
+                           np.linalg.inv(prev.pose) @ kf.pose, is_loop=False)
+
+            lo = max(0, kf_id - 1 - cfg.pose_graph.nearby_keyframes)
+            refs = self.keyframes[lo:kf_id - 1]
+            if refs:
+                with self.timer.stage("kf/nearby_edges"):
+                    self._pending_work.append(
+                        self._dispatch_edges(refs, kf, is_loop=False))
+
+            if self.vocab is not None:
+                with self.timer.stage("kf/loops"):
+                    self._try_loops(kf)
+
+            with self.timer.stage("kf/optimize"):
+                self._maybe_optimize()
+
+        # keep the newest _DEV_CACHE_KEYFRAMES keyframes' device copies;
+        # older ones (and rebuilt loop candidates) go to the host
+        hi = len(self.keyframes) - _DEV_CACHE_KEYFRAMES
+        stale = self.keyframes[self._evict_frontier:hi] if hi > 0 else []
+        self._evict_frontier = max(self._evict_frontier, hi)
+        rebuilt = [k for i, k in self._rebuilt_kfs.items()
+                   if i < max(hi, 0)]
+        self._rebuilt_kfs = {i: k for i, k in self._rebuilt_kfs.items()
+                             if i >= max(hi, 0)}
+        for old in stale + rebuilt:
+            if old.left_dev is None and old.feats_dev is None:
+                continue
+            old._host("left"), old._host("right"), old._host("disparity")
+            old.left_dev = old.right_dev = old.disparity_dev = None
+            for i, a in enumerate(("feat_xy", "feat_desc",
+                                   "feat_xyz", "feat_valid")):
+                old._feats_host(i, a)
+            old.feats_dev = None
+
+    def _store_keyframe(self, out, pose, left, right, kf_id, feats, xyz,
+                        feat_valid, bow) -> Keyframe:
+        with self.timer.stage("store/readback"):
+            kf = self._build_keyframe(out, pose, left, right, kf_id, feats,
+                                      xyz, feat_valid, bow)
+        self.keyframes.append(kf)
+        self.ref_frames.append(kf)
+        if self._anchors:
+            self._anchors[-1] = (kf_id, np.eye(4))  # this frame IS the kf
+        self.graph.poses[kf_id] = kf.pose
+        self.graph.vertex_valid[kf_id] = True
+        return kf
+
+    def _build_keyframe(self, out, pose, left, right, kf_id, feats, xyz,
+                        feat_valid, bow) -> Keyframe:
+        return Keyframe(
+            kf_id=kf_id, frame_index=self.frame_count - 1,
+            pose=np.asarray(pose, np.float32),
+            bow_dev=(bow.idx, bow.w) if bow is not None else None,
+            feats_dev=(feats.xy, feats.desc, xyz, feat_valid),
+            left_dev=left.half(), right_dev=right.half(),
+            disparity_dev=out.disparity.half())
+
+    # ------------------------------------------------------------------
+    def _add_edge(self, i, j, T_rel, is_loop, chi2=0.0, info=None):
+        e = self.n_edges
+        if e >= self.graph.edge_T.shape[0]:
+            log.warning("edge budget exhausted; dropping edge")
+            return
+        self.graph.edge_i[e] = i
+        self.graph.edge_j[e] = j
+        self.graph.edge_T[e] = np.asarray(T_rel, np.float32)
+        self.graph.edge_info[e] = (
+            info if info is not None
+            else self.cfg.pose_graph.information_weight)
+        self.graph.edge_valid[e] = True
+        self.graph.edge_is_loop[e] = is_loop
+        self.n_edges += 1
+        if is_loop:
+            self.loop_error += chi2
+            self.n_loop_edges += 1
+        else:
+            self.local_error += chi2
+
+    def _drain_pending(self):
+        """Run the continuations queued by the previous epoch; one that
+        returns a callable queues it for the next drain."""
+        work, self._pending_work = self._pending_work, []
+        for fn in work:
+            nxt = fn()
+            if callable(nxt):
+                self._pending_work.append(nxt)
+
+    def _drain_all(self):
+        while self._pending_work:
+            self._drain_pending()
+
+    def _dev_img_tracked(self, kf: Keyframe, attr: str):
+        """_dev_img, recording a rebuilt keyframe for re-eviction."""
+        rebuilt = getattr(kf, attr + "_dev", None) is None
+        dev = _dev_img(kf, attr, self.device)
+        if rebuilt:
+            self._rebuilt_kfs[kf.kf_id] = kf
+        return dev
+
+    def _try_edges_batched(self, refs, kf: Keyframe, is_loop: bool) -> int:
+        """Dispatch the batched edge work and harvest it at once."""
+        return self._dispatch_edges(refs, kf, is_loop)()
+
+    def _loop_vo(self, m: vo.QuadMatches, candidate: int) -> vo.VoResult:
+        """The loop re-measure's RANSAC + GN motion for one candidate (the
+        index of the candidate in its dispatch: a test replays the JAX
+        package's samples through it)."""
+        return vo.estimate_motion(m, self.K, self.generator, self.cfg.vo)
+
+    def _dispatch_edges(self, refs, kf: Keyframe, is_loop: bool):
+        """Queue the edge work against up to nearby_keyframes reference
+        keyframes, padded to that count: one batched PnP gate and, for loop
+        candidates, the quad-match/VO re-measure and the reverse PnP.
+        Returns the harvest: it reads the staged results, decides which
+        edges exist, inserts them and returns how many it added."""
+        cfg, dev = self.cfg, self.device
+        nb = cfg.pose_graph.nearby_keyframes
+        refs = refs[:nb]
+        n = len(refs)
+        pick = refs + [refs[0]] * (nb - n)
+        ref_valid = np.arange(nb) < n
+
+        with self.timer.stage("edges/stack"):
+            ref_feats = [r.feats_on(dev) for r in pick]
+            xy_r, desc_r, xyz_r, val_r = (torch.stack(x)
+                                          for x in zip(*ref_feats))
+            if is_loop:
+                left_r = [self._dev_img_tracked(r, "left").float()
+                          for r in refs]
+                right_r = [self._dev_img_tracked(r, "right").float()
+                           for r in refs]
+            T_init = _upload(np.stack(
+                [np.linalg.inv(np.linalg.inv(r.pose) @ kf.pose)
+                 .astype(np.float32) for r in pick]), dev)
+            kf_xy, kf_desc, kf_xyz, kf_val = kf.feats_on(dev)
+
+        with self.timer.stage("edges/pnp"):
+            infos = pnp_mod.solve_pnp_lazy(
+                desc_r, xyz_r, val_r, kf_desc, kf_xy, kf_val, self.K,
+                T_init, cfg.pnp, cfg.orb.knn_match_ratio)
+
+        # loop candidates only: the quad-match/VO re-measure, its KLT legs
+        # seeded by the image flow the PnP solution implies for a mid-depth
+        # principal-ray point (loop pairs revisit from an offset lane)
+        staged = [infos.success, infos.n_inliers, infos.T]
+        if is_loop:
+            with self.timer.stage("edges/viso"):
+                kf_left = self._dev_img_tracked(kf, "left").float()
+                kf_right = self._dev_img_tracked(kf, "right").float()
+                z_nom = 0.5 * cfg.camera.roiz
+                # infos.T maps ref-cam -> kf-cam; the legs track kf -> ref
+                R_ = infos.T[:, :3, :3].transpose(1, 2)
+                t_ = -torch.einsum("nij,nj->ni", R_, infos.T[:, :3, 3])
+                Xp = R_[:, :, 2] * z_nom + t_
+                z_ = torch.clamp(Xp[:, 2], min=1e-3)
+                priors = torch.stack([self.K.fx * Xp[:, 0] / z_,
+                                      self.K.fy * Xp[:, 1] / z_], dim=-1)
+                priors = torch.where(infos.success[:, None], priors, 0.0)
+                # the real candidates only: a padding slot's result is
+                # never read
+                res = [self._loop_vo(quadmatch.quad_match(
+                    cur_left=kf_left, cur_right=kf_right,
+                    prev_left=left_r[c], prev_right=right_r[c],
+                    qcfg=cfg.quadmatch, gcfg=cfg.gftt, kcfg=cfg.klt,
+                    flow_prior=priors[c]), c) for c in range(n)]
+                viso_success = torch.stack(
+                    [r.success for r in res] + [res[0].success] * (nb - n))
+                viso_T = torch.stack(
+                    [r.T_delta for r in res] + [res[0].T_delta] * (nb - n))
+            with self.timer.stage("edges/revpnp"):
+                # the reverse PnP (kf's 3D against each candidate's 2D),
+                # started from the forward solution's inverse
+                Rt_f = infos.T[:, :3, :3].transpose(1, 2)
+                T_init_rev = torch.zeros_like(infos.T)
+                T_init_rev[:, :3, :3] = Rt_f
+                T_init_rev[:, :3, 3] = -torch.einsum(
+                    "nij,nj->ni", Rt_f, infos.T[:, :3, 3])
+                T_init_rev[:, 3, 3] = 1.0
+                res_rev = pnp_mod.solve_pnp_lazy(
+                    kf_desc, kf_xyz, kf_val, desc_r, xy_r, val_r, self.K,
+                    T_init_rev, cfg.pnp, cfg.orb.knn_match_ratio)
+            staged += [viso_success, viso_T, res_rev.success, res_rev.T]
+        read = _stage_to_host(staged)
+
+        def harvest() -> int:
+            with self.timer.stage("edges/readback"):
+                vals = read()
+                ok = vals[0] & ref_valid
+                pnp_inl = vals[1]
+                T_pnp = se3_np.inverse(vals[2].astype(np.float64))
+                if is_loop:
+                    viso_ok = vals[3]
+                    T_viso = se3_np.inverse(vals[4].astype(np.float64))
+                    rev_ok = vals[5]
+                    # the reverse PnP solves kf-cam -> ref-cam directly
+                    T_rev = vals[6].astype(np.float64)
+            added = 0
+            pgc = self.cfg.pose_graph
+            for i in range(n):
+                if not ok[i]:
+                    continue
+                if is_loop:
+                    self.loop_candidate_inliers.append(int(pnp_inl[i]))
+                ref = refs[i]
+                use_viso = use_rev = False
+                dt = dr = dt_rev = float("nan")
+                if is_loop and viso_ok[i]:
+                    dt, dr = _motion_size(
+                        np.linalg.inv(T_viso[i]) @ T_pnp[i])
+                    use_viso = dt < 0.5 and dr < np.radians(3.0)
+                if is_loop and rev_ok[i]:
+                    dt_rev, dr_rev = _motion_size(
+                        np.linalg.inv(T_rev[i]) @ T_pnp[i])
+                    use_rev = dt_rev < 0.5 and dr_rev < np.radians(3.0)
+                if is_loop:
+                    self.loop_verify_log.append(
+                        (int(pnp_inl[i]), bool(viso_ok[i]), dt,
+                         float(np.degrees(dr)), dt_rev))
+                # a loop edge needs an independent check that agrees with
+                # the PnP pose (< 0.5 m, < 3 deg) and the inlier floor
+                if is_loop and not ((use_viso or use_rev)
+                                    and pnp_inl[i] >= pgc.loop_min_inliers):
+                    continue
+                T_rel = T_viso[i] if use_viso else T_pnp[i]
+                T_odo = np.linalg.inv(ref.pose) @ kf.pose
+                # the trigger statistic: the se3-log discrepancy between
+                # the measurement and the odometry chain, at the uniform
+                # reference weight
+                r = se3_np.log(np.linalg.inv(T_rel) @ T_odo)
+                info = (pgc.information_weight if is_loop
+                        else pgc.nearby_information_weight)
+                chi2 = float(info * (r @ r))
+                if is_loop and pgc.info_from_inliers:
+                    s = min(float(pnp_inl[i]) / pgc.info_full_inliers,
+                            1.0) ** 2
+                    info = info * max(s, pgc.info_min_scale)
+                self._add_edge(ref.kf_id, kf.kf_id, T_rel, is_loop, chi2,
+                               info=info)
+                if is_loop:
+                    self.loop_edge_inliers.append(int(pnp_inl[i]))
+                added += 1
+            return added
+
+        return harvest
+
+    # ------------------------------------------------------------------
+    def _bow_db_sync(self):
+        """Append the keyframes not yet in the device BoW database."""
+        while self._db_n < len(self.keyframes):
+            k = self.keyframes[self._db_n]
+            bi, bw = (k.bow_dev if k.bow_dev is not None
+                      else (_upload(k.bow_idx, self.device),
+                            _upload(k.bow_w, self.device)))
+            if self._db_idx is None:
+                cap = 64
+                self._db_idx = torch.full((cap,) + bi.shape, lp.PAD_WORD,
+                                          dtype=bi.dtype, device=self.device)
+                self._db_w = torch.zeros((cap,) + bw.shape,
+                                         device=self.device)
+            if self._db_n == self._db_idx.shape[0]:   # grow x2
+                self._db_idx = torch.cat(
+                    [self._db_idx, torch.full_like(self._db_idx, 2 ** 30)])
+                self._db_w = torch.cat(
+                    [self._db_w, torch.zeros_like(self._db_w)])
+            self._db_idx[self._db_n] = bi
+            self._db_w[self._db_n] = bw
+            self._db_n += 1
+
+    def _try_loops(self, kf: Keyframe):
+        """Queue BoW scoring now; the next epoch picks the best-scoring
+        candidates (at most nearby_keyframes) and queues their
+        verification, harvested the epoch after."""
+        cfg = self.cfg.looper
+        if len(self.keyframes) <= 1:
+            return
+        self._bow_db_sync()
+        cap = self._db_idx.shape[0]
+        n = self._db_n
+        # row i is keyframe i; the query's own row is excluded by the
+        # frame-gap gate, padding rows by db_valid
+        ids = np.zeros(cap, np.int64)
+        ids[:n] = [k.frame_index for k in self.keyframes[:n]]
+        db_valid = np.arange(cap) < n
+        with self.timer.stage("loops/score"):
+            scores_dev, mask_dev = lp.get_possible_loops_sparse(
+                lp.SparseBow(*kf.bow_dev), self._db_idx, self._db_w,
+                _upload(ids, self.device), _upload(db_valid, self.device),
+                kf.frame_index, cfg.min_sim_score, cfg.min_interval)
+        read = _stage_to_host([scores_dev, mask_dev])
+
+        def pick_and_dispatch():
+            scores, mask = read()
+            # the best-scoring candidates, at most the nearby budget
+            idx = np.nonzero(mask)[0]
+            nb = self.cfg.pose_graph.nearby_keyframes
+            idx = idx[np.argsort(-scores[idx])[:nb]]
+            cand = [self.keyframes[int(i)] for i in idx]
+            if not cand:
+                return None
+            with self.timer.stage("loops/verify_dispatch"):
+                harvest = self._dispatch_edges(cand, kf, is_loop=True)
+
+            def harvest_loops():
+                added = harvest()
+                if added:
+                    log.info("%d loop edge(s) -> kf %d", added, kf.kf_id)
+            return harvest_loops
+
+        self._pending_work.append(pick_and_dispatch)
+
+    # ------------------------------------------------------------------
+    def _maybe_optimize(self, force_global: bool = False):
+        """Optimise the graph when the accumulated chi^2 asks for it
+        (global over the loop error, else local), then re-anchor the
+        frontend on the newest keyframe."""
+        cfg = self.cfg.pose_graph
+        n = len(self.keyframes)
+        did = False
+
+        def solve(mask_of, iters):
+            # the live region, in power-of-two buckets
+            nv, ne = 64, 128
+            while nv < n:
+                nv *= 2
+            while ne < self.n_edges:
+                ne *= 2
+            nv = min(nv, self.graph.poses.shape[0])
+            ne = min(ne, self.graph.edge_T.shape[0])
+            host = pg.PoseGraph(
+                self.graph.poses[:nv], self.graph.vertex_valid[:nv],
+                self.graph.edge_i[:ne], self.graph.edge_j[:ne],
+                self.graph.edge_T[:ne], self.graph.edge_info[:ne],
+                self.graph.edge_valid[:ne], self.graph.edge_is_loop[:ne])
+            table = pg.vertex_edge_table(host.edge_i, host.edge_j,
+                                         host.edge_valid, nv)
+            g = pg.PoseGraph(*(_upload(a, self.device) for a in host))
+            g = pg.optimize(g, mask_of(g), cfg, iters=iters, table=table)
+            self.graph.poses[:nv] = g.poses.cpu().numpy()
+
+        if force_global or self.loop_error > cfg.loop_accumulate_error:
+            solve(pg.global_free_mask, cfg.global_iters)
+            self.loop_error = 0.0
+            self.local_error = 0.0
+            did = True
+            self.n_global_optimizations += 1
+            log.info("global optimization over %d keyframes", n)
+        elif self.local_error > cfg.local_accumulate_error:
+            solve(lambda g: pg.local_free_mask(g, n, cfg.local_window), 5)
+            self.local_error = 0.0
+            did = True
+            self.n_local_optimizations += 1
+            log.info("local optimization (last %d of %d keyframes)",
+                     cfg.local_window, n)
+        if did:
+            self.n_optimizations += 1
+            pre_opt = self.keyframes[-1].pose.copy()
+            poses = self.graph.poses[:n]
+            for i, kfr in enumerate(self.keyframes):
+                kfr.pose = poses[i]
+            self._adjust_frontend(self.keyframes[-1], pre_opt)
+
+    # ------------------------------------------------------------------
+    def _pnp_to_ref(self, ref: Keyframe, left, disparity,
+                    T_init: np.ndarray):
+        """PnP the live frame against a reference keyframe; returns the new
+        T_w_c or None."""
+        feats, _, _ = self._extract_features(left, disparity)
+        _, r_desc, r_xyz, r_val = ref.feats_on(self.device)
+        info = pnp_mod.solve_pnp_lazy(
+            r_desc, r_xyz, r_val, feats.desc, feats.xy, feats.valid,
+            self.K, _upload(T_init.astype(np.float32), self.device),
+            self.cfg.pnp, self.cfg.orb.knn_match_ratio)
+        if not bool(info.success):
+            return None
+        # info.T maps ref-camera coordinates to current-camera ones
+        return ref.pose @ np.linalg.inv(
+            info.T.detach().to("cpu", torch.float64).numpy())
+
+    def _adjust_frontend(self, ref: Keyframe, ref_pose_pre_opt: np.ndarray):
+        """Re-anchor the frontend on the optimised reference keyframe and
+        reset the reference deque to it. The newest trajectory entry is the
+        keyframe's own frame and takes its optimised pose; the live tracker
+        state, which may be ahead of it, gets the optimisation's
+        correction, refined by PnP against the keyframe when the live frame
+        is past it."""
+        self._rewrite_last(ref.pose.astype(np.float64), anchor_kf=ref)
+        cur_pose = self._state_pose()
+        C = ref.pose.astype(np.float64) @ np.linalg.inv(
+            ref_pose_pre_opt.astype(np.float64))
+        new_pose = C @ cur_pose
+        # in-flight frames get the pure optimisation transport; the PnP
+        # refinement is specific to the newest dispatched frame
+        self._note_correction(C)
+        live_is_ref = np.allclose(cur_pose, ref_pose_pre_opt, atol=1e-5)
+        if not live_is_ref and self._prev is not None \
+                and self._last_disparity is not None:
+            refined = self._pnp_to_ref(
+                ref, self._prev[0], self._last_disparity,
+                np.linalg.inv(new_pose) @ ref.pose)
+            if refined is not None:
+                self._note_correction(refined @ np.linalg.inv(new_pose),
+                                      exact=True)
+                new_pose = refined
+        self._adjust_state(new_pose)
+        self.ref_frames.clear()
+        self.ref_frames.append(ref)
+
+    def _relocalize(self, left, disparity, cur_pose):
+        """PnP the live frame against the reference keyframes, newest
+        first; returns (new_pose, ref) or None."""
+        cur_pose = np.asarray(cur_pose, np.float64)
+        for ref in reversed(self.ref_frames):
+            T_init = np.linalg.inv(cur_pose) @ ref.pose
+            new_pose = self._pnp_to_ref(ref, left, disparity, T_init)
+            if new_pose is not None:
+                return new_pose, ref
+        return None
+
+    def _lost_recover(self, left, disparity) -> bool:
+        """Relocalise a LOST frame against the reference keyframes; when
+        every one fails, re-seed at the newest one's pose."""
+        old_pose = np.asarray(self.trajectory[-1], np.float64)
+        rec = self._relocalize(left, disparity, old_pose)
+        if rec is not None:
+            new_pose, ref = rec
+            found = True
+            log.info("relocalized against keyframe %d", ref.kf_id)
+        else:
+            ref = self.ref_frames[-1]
+            new_pose = ref.pose.astype(np.float64)
+            found = False
+            log.info("lost: re-seeded at keyframe %d pose", ref.kf_id)
+        # the live state may be ahead of the recovered frame: compose
+        C = new_pose @ np.linalg.inv(old_pose)
+        self._adjust_state(C @ self._state_pose())
+        self._note_correction(C)
+        self._rewrite_last(new_pose, anchor_kf=ref)
+        self.n_recoveries += 1
+        return found
+
+    def _note_correction(self, C: np.ndarray, exact: bool = False):
+        """Register a correction for the frames in flight (their poses came
+        from the pre-rewrite state); ``exact`` applies it to the newest
+        dispatched frame only."""
+        if self._dispatched > self._processed:
+            self._corrections.append((self._dispatched, np.asarray(C),
+                                      exact))
+
+    # ------------------------------------------------------------------
+    def finish(self) -> np.ndarray:
+        """Drain the deferred work, run a forced global optimisation, and
+        export every frame through its keyframe anchor: (F, 4, 4)."""
+        self._drain_all()
+        if len(self.keyframes) > 1:
+            self._maybe_optimize(force_global=True)
+        traj = []
+        for pose, (kf_id, T_rel) in zip(self.trajectory, self._anchors):
+            traj.append(pose if kf_id < 0
+                        else self.keyframes[kf_id].pose @ T_rel)
+        return np.stack(traj)

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, as plain functions of numpy
 data (no JAX import): a config dict, intrinsics, a tracker state and a
-synthetic world each become the port's counterpart. The frontend has no
-learned weights.
+synthetic world each become the port's counterpart. The ported slices have
+no learned weights.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from semantic_slam_mapping_torch.io.synthetic import World
 
 def config_from_dict(d: Mapping[str, Any]) -> cfg_mod.SlamConfig:
     """``dataclasses.asdict`` of a JAX ``SlamConfig`` -> the port's config.
-    Sections the frontend does not read are dropped; a field the port does
+    Sections the port does not read (map, SegNet, ...) are dropped; a field the port does
     not know raises."""
     sections = {}
     for f in dataclasses.fields(cfg_mod.SlamConfig):

@@ -13,10 +13,12 @@ import torch
 from semantic_slam_mapping_tpu.config import CameraConfig as JCam
 from semantic_slam_mapping_tpu.geometry import camera as jcam
 from semantic_slam_mapping_tpu.geometry import se3 as jse3
+from semantic_slam_mapping_tpu.geometry import se3_np as jse3_np
 from semantic_slam_mapping_tpu.geometry import stereo as jstereo
 from semantic_slam_mapping_torch.config import CameraConfig as TCam
 from semantic_slam_mapping_torch.geometry import camera as tcam
 from semantic_slam_mapping_torch.geometry import se3 as tse3
+from semantic_slam_mapping_torch.geometry import se3_np as tse3_np
 from semantic_slam_mapping_torch.geometry import stereo as tstereo
 
 torch.set_num_threads(2)
@@ -33,7 +35,8 @@ def _np(x):
 
 
 SE3_CASES = ["exp", "log_of_exp", "so3_exp", "hat", "inverse", "compose",
-             "orthonormalize", "transform_points"]
+             "orthonormalize", "transform_points", "vee", "adjoint",
+             "translation_norm", "rotation_angle", "se3_np"]
 
 
 def _se3_case(name):
@@ -54,6 +57,26 @@ def _se3_case(name):
     if name == "compose":
         return (jse3.compose(jse3.exp(xi_j), jse3.exp(xi_j[::-1])),
                 tse3.compose(tse3.exp(xi_t), tse3.exp(xi_t.flip(0))), ATOL)
+    if name == "vee":
+        return (jse3.vee(jse3.hat(xi_j[:, :3])),
+                tse3.vee(tse3.hat(xi_t[:, :3])), ATOL)
+    if name == "adjoint":
+        # entries carry |t| up to ~3
+        return jse3.adjoint(jse3.exp(xi_j)), tse3.adjoint(tse3.exp(xi_t)), 1e-4
+    if name == "translation_norm":
+        return (jse3.translation_norm(jse3.exp(xi_j)),
+                tse3.translation_norm(tse3.exp(xi_t)), ATOL)
+    if name == "rotation_angle":
+        # the angle comes through log, which amplifies rounding near pi
+        return (jse3.rotation_angle(jse3.exp(xi_j)),
+                tse3.rotation_angle(tse3.exp(xi_t)), 1e-4)
+    if name == "se3_np":
+        # the host-side numpy copies, in float64: inverse and log
+        T = np.asarray(jse3.exp(xi_j), np.float64)
+        return (np.concatenate([jse3_np.inverse(T).reshape(16, -1),
+                                jse3_np.log(T)], axis=1),
+                np.concatenate([tse3_np.inverse(T).reshape(16, -1),
+                                tse3_np.log(T)], axis=1), 0.0)
     if name == "orthonormalize":
         noisy = (np.random.default_rng(5).normal(size=(16, 4, 4)) * 1e-3
                  ).astype(np.float32)
