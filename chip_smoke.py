@@ -11,7 +11,7 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    nvidia-smi. Fails when there is no CUDA device.
 2. ``build``: compiles the kernel source of the port's main path with
    nvcc for sm_90a into build/torch_kernels/ (``-Xptxas -v`` prints its
-   registers and spills).
+   registers and spills), and the C++ voxel map with g++.
 3. ``kernels``: holds each kernel against its plain PyTorch version on the
    card, exactly (tolerance 0) and in the volume's dtype, at the main
    path's shape in float32 and bfloat16, and at a few small and ragged
@@ -21,37 +21,49 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    variants built with one part switched off, to show what bounds it.
 4. ``slice``: renders 10 KITTI-size (376x1248) stereo frames of a
    fixed-seed synthetic street on the card and runs them through
-   ``SlamSystem(cfg, device="cuda").process_stream`` with the default
-   configuration (80 disparities, 11x11 window, bfloat16 cost volume, 512
-   features, 200 RANSAC hypotheses) and no vocabulary. Every kernel launch
-   count is zeroed just before and read just after; each kernel must have
-   been launched, and every SGM aggregate of the run must be bfloat16.
-   Every tracked frame must have a VO success, the trajectory's ATE RMSE
-   against the rendered ground truth must be below 0.3 m, and the results
-   must live on the card.
+   ``SlamSystem(cfg, enable_mapping=True, device="cuda").process_stream``
+   with the default configuration (80 disparities, 11x11 window, bfloat16
+   cost volume, 512 features, 200 RANSAC hypotheses), no vocabulary, and
+   online SegNet at full width (VGG16, bfloat16, 384x480 input) with
+   weights drawn from seed 0. Every kernel launch count is zeroed just
+   before and read just after; each kernel must have been launched, and
+   every SGM aggregate of the run must be bfloat16. Every tracked frame
+   must have a VO success, the trajectory's ATE RMSE against the rendered
+   ground truth must be below 0.3 m, the results and the keyframes' SegNet
+   labels must live on the card, and the map must have voxels.
 5. ``epoch``: the whole stereo SLAM at KITTI size with the default
    configuration: 250 frames of a circular course (radius 15 m, 1.25 laps,
-   0.47 m a frame) through a fixed-seed loop world with 6 movers, a
+   0.47 m a frame) through a fixed-seed loop world with 6 movers, with the
+   renderer's ground-truth labels as each frame's fourth item, a
    vocabulary built by ``build_vocabulary`` (branching 10, depth 4) from
-   the ORB descriptors of every 12th frame, then
-   ``SlamSystem(cfg, vocab, device="cuda").process_stream(depth=6)`` and
+   the ORB descriptors of every 12th frame, then ``SlamSystem(cfg, vocab,
+   enable_mapping=True, device="cuda").process_stream(depth=6)`` and
    ``finish()``. Counts zeroed just before and read just after: the SGM
    kernel must run exactly twice per tracked frame. The run must make at
    least 10 keyframes, accept a loop edge, fire a global optimisation
-   before ``finish``, keep its features and BoW database on the card, and
-   finish with an ATE RMSE below 0.8 m. Prints frames/s, the stage timer,
-   the counts, and the device-busy share of one profiled keyframe epoch.
-6. ``stages``: times each stage of one frontend step on the card, then
+   before ``finish``, keep its features and BoW database on the card,
+   finish with an ATE RMSE below 0.8 m, and build a map of more than
+   50,000 voxels with no voxel of an excluded class (sky, pole,
+   bicyclist), whose PCD reads back with POINTS equal to the voxel count.
+   Prints frames/s, the stage timer, the counts, the map, and the
+   device-busy share of one profiled keyframe epoch.
+6. ``segnet``: times the full-width SegNet alone on a (1, 384, 480, 3)
+   input and ``SlamSystem._run_segnet`` on one KITTI-size keyframe (CUDA
+   events, median of 15), with its launches per call and its rate against
+   the card's bfloat16 peak.
+7. ``stages``: times each stage of one frontend step on the card, then
    profiles one step: device-busy time, idle share, launches, top kernels.
-7. ``candidates``: card time and launches of the keyframe epoch's
+8. ``candidates``: card time and launches of the keyframe epoch's
    kernel candidates (Hamming matching, batched PnP, the vocabulary
-   descent, the LM + PCG solve) at the epoch's shapes, per call and per
-   keyframe, beside one PyTorch call computing the same function where
-   there is one.
-8. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
-   with fixed samples, ORB, the PnP gate and the pose-graph solve on the
-   card and on the host CPU with the same inputs from one KITTI-size frame
-   pair, and the pose-graph solve twice on the card; prints each
+   descent, the LM + PCG solve, the keyframe cloud) at the epoch's shapes,
+   per call and per keyframe, beside one PyTorch call computing the same
+   function where there is one.
+9. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
+   with fixed samples, ORB, the PnP gate, the pose-graph solve, the
+   quantized keyframe cloud, SegNet's pooling with planted ties, one
+   bfloat16 SegNet layer and SegNet's labels of one frame on the card and
+   on the host CPU with the same inputs from one KITTI-size frame pair or
+   keyframe, and the pose-graph solve twice on the card; prints each
    tolerance and error, and raises on a miss.
 
 Then the kernels line ``{"kernels": [...]}``, the card's name and power
@@ -61,13 +73,16 @@ Any failure raises and the script exits non-zero without that last line.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,12 +90,14 @@ import torch
 from semantic_slam_mapping_torch import pipeline
 from semantic_slam_mapping_torch.backend import looper, pnp
 from semantic_slam_mapping_torch.backend import pose_graph as pg
-from semantic_slam_mapping_torch.config import SlamConfig
+from semantic_slam_mapping_torch.config import SegNetConfig, SlamConfig
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
 from semantic_slam_mapping_torch.frontend import uvdisparity as uvd
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics
 from semantic_slam_mapping_torch.io import synthetic
+from semantic_slam_mapping_torch.mapping import native, semantics
+from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import matching, orb, sgbm
 from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
 from semantic_slam_mapping_torch.pipeline import SlamSystem
@@ -96,10 +113,15 @@ LOOP_RADIUS_M = 15.0
 LOOP_LAPS = 1.25
 EPOCH_ATE_BOUND_M = 0.8
 VOCAB_EVERY = 12
+# the map of the epoch: at least this many voxels
+EPOCH_MIN_VOXELS = 50_000
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
-# tensor cores
+# tensor cores, dense bf16 FLOP/s on them
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
+# SegNet's input: the configured 360x480 padded to multiples of 32
+SEGNET_HW = (384, 480)
 # f32 operations per (pixel, disparity) of sgm_aggregate4, per direction:
 # a min-reduction term, 4 adds, 3 mins, 1 subtract and the add into the
 # four-direction sum
@@ -170,7 +192,12 @@ def phase_device() -> dict:
 def phase_build() -> None:
     t = time.time()
     lib = sgm_cuda.build(verbose=True)
-    emit("build", seconds=round(time.time() - t, 2), libraries=[lib.name])
+    nvcc_s = time.time() - t
+    t = time.time()
+    voxel_lib = native.build()
+    emit("build", seconds=round(nvcc_s, 2), libraries=[lib.name],
+         voxel_map_seconds=round(time.time() - t, 2),
+         voxel_map_library=voxel_lib.name)
 
 
 def check_sgm(vol: torch.Tensor, p1: float, p2: float, label: str) -> float:
@@ -285,17 +312,26 @@ def render_frames(cfg: SlamConfig):
             seq["moving"])
 
 
-def phase_slice(card: str):
+def segnet_config() -> SlamConfig:
+    """The default configuration with online SegNet (full width, seeded
+    weights)."""
     cfg = SlamConfig()
+    return cfg.replace(segnet=dataclasses.replace(cfg.segnet, online=True))
+
+
+def phase_slice(card: str):
+    cfg = segnet_config()
     t = time.time()
     frames, gt, gt_moving = render_frames(cfg)
     torch.cuda.synchronize()
     emit("slice", step="rendered", frames=len(frames), shape=[H, W],
          seconds=round(time.time() - t, 2))
 
-    warm = SlamSystem(cfg, device="cuda")       # warm-up: one tracked frame
+    # warm-up: one tracked frame, its keyframe's SegNet and cloud
+    warm = SlamSystem(cfg, enable_mapping=True, device="cuda")
     for left, right in frames[:2]:
         warm.process_frame(left, right)
+    warm.finish()
     torch.cuda.synchronize()
 
     # sgbm.compute looks _aggregate up at each call: record the dtype of
@@ -308,7 +344,7 @@ def phase_slice(card: str):
         agg_dtypes.append(agg.dtype)
         return agg
 
-    system = SlamSystem(cfg, device="cuda")
+    system = SlamSystem(cfg, enable_mapping=True, device="cuda")
     sgbm._aggregate = recording_aggregate
     try:
         sgm_cuda.sgm_aggregate4.launches = 0
@@ -319,6 +355,7 @@ def phase_slice(card: str):
         launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
     finally:
         sgbm._aggregate = aggregate
+    system._drain_all()
 
     tracked = N_FRAMES - 1
     if launches["sgm_aggregate4"] != 2 * tracked:
@@ -337,9 +374,12 @@ def phase_slice(card: str):
     ate = ate_rmse(est, gt)
     last = system.last_result
     on_card = [last.pose, last.moving_mask, last.disparity,
-               last.matches.lc, system.state.pose]
-    if not all(x.device.type == "cuda" for x in on_card):
-        raise AssertionError("a result of the main path is not on the card")
+               last.matches.lc, system.state.pose,
+               *(k.semantic_dev for k in system.keyframes)]
+    if not all(x is not None and x.device.type == "cuda" for x in on_card):
+        raise AssertionError("a result of the main path or a keyframe's "
+                             "SegNet labels are not on the card")
+    timer = system.timer.summary()
     mov, mov_gt = last.moving_mask, gt_moving[-1]
     iou = float((mov & mov_gt).sum()) / max(float((mov | mov_gt).sum()), 1.0)
     emit("slice", frames=N_FRAMES, tracked=tracked,
@@ -352,10 +392,21 @@ def phase_slice(card: str):
          moving_px_per_frame=[f.n_moving for f in log],
          last_frame_moving_px=int(mov.sum()),
          last_frame_gt_moving_px=int(mov_gt.sum()),
-         last_frame_moving_iou=iou, card=card)
+         last_frame_moving_iou=iou, keyframes=len(system.keyframes),
+         map_voxels=len(system.map),
+         kf_segnet_host_ms=timer["kf/segnet"]["mean_ms"],
+         kf_segnet_calls=timer["kf/segnet"]["calls"],
+         first_keyframe_label_counts=np.bincount(
+             system.keyframes[0].semantic.reshape(-1).astype(np.int64),
+             minlength=12).tolist(),
+         card=card)
     if not ate < ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_BOUND_M} m")
-    return launches, frames
+    if timer["kf/segnet"]["calls"] != len(system.keyframes) or \
+            not len(system.map):
+        raise AssertionError("online SegNet did not label every keyframe "
+                             "or the map is empty")
+    return launches, frames, system
 
 
 def phase_stages(frames) -> None:
@@ -454,7 +505,8 @@ def loop_camera(height: int, width: int) -> SlamConfig:
 def render_loop(cfg: SlamConfig, n_frames: int, height: int, width: int,
                 device: str):
     """The epoch phase's sequence, rendered in chunks on ``device``:
-    (host frames [(left, right)], ground-truth poses)."""
+    (host frames [(left, right, None, labels)], ground-truth poses); the
+    labels are the renderer's, in int8."""
     K = Intrinsics.from_config(cfg.camera)
     gen = torch.Generator(device=device).manual_seed(7)
     world = synthetic.make_loop_world(gen, n_boxes=48, radius=LOOP_RADIUS_M,
@@ -466,8 +518,9 @@ def render_loop(cfg: SlamConfig, n_frames: int, height: int, width: int,
     for start in range(0, n_frames, 25):
         seq = synthetic.render_sequence(K, world, poses[start:start + 25],
                                         height, width, start_index=start)
-        frames += list(zip(seq["left"].cpu().numpy(),
-                           seq["right"].cpu().numpy()))
+        frames += [(left, right, None, sem) for left, right, sem in zip(
+            seq["left"].cpu().numpy(), seq["right"].cpu().numpy(),
+            seq["semantic"].to(torch.int8).cpu().numpy())]
     return frames, poses.cpu().numpy().astype(np.float64)
 
 
@@ -476,8 +529,8 @@ def loop_vocabulary(cfg: SlamConfig, frames, device: str):
     VOCAB_EVERY-th frame, clustered to branching 10, depth 4."""
     up = SlamSystem(cfg, device=device)._upload_gray
     descs = []
-    for left, _ in frames[::VOCAB_EVERY]:
-        f = orb.extract(up(left), cfg.orb)
+    for frame in frames[::VOCAB_EVERY]:
+        f = orb.extract(up(frame[0]), cfg.orb)
         descs.append(f.desc[f.valid].cpu().numpy())
     return looper.build_vocabulary(np.concatenate(descs), branching=10,
                                    depth=4)
@@ -511,11 +564,13 @@ class CallCounter:
 def run_epoch(cfg: SlamConfig, frames, vocab, device: str):
     """The main path: process_stream(depth=6) then finish(), with the
     kernel launch counts zeroed just before and read just after."""
-    system = SlamSystem(cfg, vocab=vocab, device=device)
+    system = SlamSystem(cfg, vocab=vocab, enable_mapping=True,
+                        device=device)
     counter = CallCounter({
         "solve_pnp_lazy": (pnp, "solve_pnp_lazy"),
         "transform_sparse": (looper, "transform_sparse"),
-        "optimize": (pg, "optimize")})
+        "optimize": (pg, "optimize"),
+        "_kf_cloud": (pipeline, "_kf_cloud")})
     with counter:
         sgm_cuda.sgm_aggregate4.launches = 0
         t = time.time()
@@ -574,6 +629,7 @@ def phase_epoch(card: str, device: str = "cuda", height: int = H,
     kfs = system.keyframes
     ate = ate_rmse(traj, gt)
     n_kf = max(len(kfs), 1)
+    map_fields = map_report(system)
     fields = dict(
         frames=n_frames, tracked=tracked, shape=[height, width],
         seconds=run["seconds"], stream_seconds=run["stream_s"],
@@ -596,7 +652,7 @@ def phase_epoch(card: str, device: str = "cuda", height: int = H,
         timer={k: {"calls": v["calls"], "mean_ms": v["mean_ms"],
                    "total_s": v["total_s"]}
                for k, v in system.timer.summary().items()},
-        card=card)
+        **map_fields, card=card)
     if device == "cuda":
         fields["profiled_epoch"] = profile_epoch(system)
     emit("epoch", **fields)
@@ -614,6 +670,15 @@ def phase_epoch(card: str, device: str = "cuda", height: int = H,
         raise AssertionError("no global optimisation before finish()")
     if not np.all(np.isfinite(traj)) or not ate < EPOCH_ATE_BOUND_M:
         raise AssertionError(f"ATE {ate} m >= {EPOCH_ATE_BOUND_M} m")
+    if map_fields["map_voxels"] <= EPOCH_MIN_VOXELS:
+        raise AssertionError(f"map of {map_fields['map_voxels']} voxels, "
+                             f"expected more than {EPOCH_MIN_VOXELS}")
+    if map_fields["excluded_class_voxels"]:
+        raise AssertionError("a voxel of an excluded class is in the map")
+    if not map_fields["pcd_reads_back"]:
+        raise AssertionError(f"the PCD holds {map_fields['pcd_points']} "
+                             f"points ({map_fields['pcd_bytes']} bytes) for "
+                             f"{map_fields['map_voxels']} voxels")
     on_card = [*kfs[-1].feats_dev, *kfs[-1].bow_dev, system._db_idx,
                system._db_w, kfs[-1].left_dev]
     if device == "cuda" and not all(x.device.type == "cuda"
@@ -624,10 +689,44 @@ def phase_epoch(card: str, device: str = "cuda", height: int = H,
             "calls": run["calls"], "vocab": vocab}
 
 
+def map_report(system: SlamSystem) -> dict:
+    """The epoch's map: voxel count, labels, the PCD written and read
+    back (its POINTS header and whether its size is one 16-byte point per
+    voxel), and the bytes of the keyframe clouds read back."""
+    _, rgb, lbl = system.map.as_arrays()
+    n_voxels = len(system.map)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "map.pcd"
+        system.map.save_pcd(str(path))
+        data = path.read_bytes()
+    head = data[:data.index(b"DATA binary\n")].decode()
+    points = int(head.split("POINTS ")[1].split()[0])
+    # each keyframe's cloud comes back as a power-of-two prefix (>= 256
+    # rows) of int16 xyz, u8 rgb and i8 label: 10 bytes a row
+    budget = system.cfg.mapper.max_points_per_frame
+    rows = [min(budget, max(256, 1 << int(np.ceil(np.log2(max(len(c[0]),
+                                                               1))))))
+            for c in system._cloud_cache.values()]
+    fields = dict(
+        map_voxels=n_voxels, map_updates=system._map_updates,
+        map_label_counts=np.bincount(lbl, minlength=12).tolist(),
+        map_mean_rgb=rgb.mean(0).tolist() if n_voxels else None,
+        pcd_bytes=len(data), pcd_points=points,
+        cloud_points_per_keyframe=[len(c[0]) for c in
+                                   system._cloud_cache.values()],
+        cloud_readback_bytes_per_keyframe=10 * float(np.mean(rows)),
+        excluded_class_voxels=int(
+            np.isin(lbl, semantics.MAP_EXCLUDED_CLASSES).sum()),
+        pcd_reads_back=bool(points == n_voxels and len(data) == len(head)
+                            + len(b"DATA binary\n") + 16 * points))
+    return fields
+
+
 def phase_candidates(epoch: dict) -> None:
     """Card time and launches of the epoch's kernel candidates (K7-K10 of
-    ROADMAP.md) at the epoch's own shapes: the newest keyframe against the
-    five before it, its BoW, and one global solve of the final graph."""
+    ROADMAP.md, and the keyframe cloud) at the epoch's own shapes: the
+    newest keyframe against the five before it, its BoW, one global solve
+    of the final graph, and its cloud."""
     system, vocab = epoch["system"], epoch["vocab"]
     cfg, K = system.cfg, system.K
     kfs = system.keyframes
@@ -642,6 +741,7 @@ def phase_candidates(epoch: dict) -> None:
     feats = orb.extract(kf.left_dev.float(), cfg.orb)  # the BoW's input
     vocab = vocab.to(system.device)
     g, table, mask = final_graph(system)
+    cloud_args = keyframe_cloud_inputs(system)
 
     cands = {
         "K7 hamming_matrix+knn2_ratio": (
@@ -663,6 +763,9 @@ def phase_candidates(epoch: dict) -> None:
                                 iters=cfg.pose_graph.global_iters,
                                 table=table),
             None, "optimize"),
+        "keyframe cloud (_kf_cloud)": (
+            lambda: pipeline._kf_cloud(*cloud_args, K, cfg.mapper),
+            None, "_kf_cloud"),
     }
     rows = {}
     for name, (fn, lib, calls_key) in cands.items():
@@ -676,6 +779,20 @@ def phase_candidates(epoch: dict) -> None:
             "library_ms": cuda_ms(lib, warmup=1, reps=5) if lib else None}
     emit("candidates", keyframes=n_kf, graph_vertices=int(g.poses.shape[0]),
          graph_edges=int(g.edge_valid.sum()), rows=rows)
+
+
+def keyframe_cloud_inputs(system: SlamSystem, device: str = "cuda"):
+    """The cloud inputs of the newest keyframe with labels on ``device``:
+    float16 disparity and gray image, no color, its labels, the newest
+    frame's moving mask."""
+    kf = next(k for k in reversed(system.keyframes)
+              if k.disparity_dev is not None
+              and (k.semantic_dev is not None or k.semantic_host is not None))
+    labels = (kf.semantic_dev if kf.semantic_dev is not None
+              else torch.from_numpy(kf.semantic_host))
+    return tuple(x.to(device) if x is not None else None for x in (
+        kf.disparity_dev, kf.left_dev, None, labels.long(),
+        system.last_result.moving_mask))
 
 
 def final_graph(system: SlamSystem):
@@ -695,6 +812,51 @@ def final_graph(system: SlamSystem):
     g = pg.PoseGraph(*(torch.from_numpy(np.ascontiguousarray(a))
                        .to(system.device) for a in host))
     return g, table, pg.global_free_mask(g)
+
+
+def phase_segnet(slice_system: SlamSystem, frames, card: str) -> dict:
+    """The full-width SegNet (bfloat16, the slice's seeded weights) alone
+    on a (1, 384, 480, 3) input, and the online labelling of one KITTI-size
+    keyframe (``_run_segnet``: resize, network, argmax, nearest resize
+    back), by CUDA events, median of 15; launches per call by the
+    profiler."""
+    model = slice_system._segnet
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((1, *SEGNET_HW, 3), generator=gen, device="cuda")
+    left = slice_system._upload_gray(frames[3][0])
+
+    def net():
+        with torch.no_grad():
+            return model(x)
+
+    def online():
+        return slice_system._run_segnet(left)
+
+    flops = segnet_mod.flops(model, *SEGNET_HW)
+    n_params = sum(p.numel() for p in model.parameters())
+    # the least bytes: the input and the float32 weights read once, the
+    # float32 logits written once
+    n_bytes = (x.numel() * 4 + n_params * 4
+               + SEGNET_HW[0] * SEGNET_HW[1] * model.num_classes * 4)
+    t_ops, t_bytes = flops / PEAK_BF16_S, n_bytes / PEAK_BYTES_S
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(net, warmup=3, reps=15)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    online_ms = cuda_ms(online, warmup=2, reps=15)
+    row = dict(
+        shape=[1, *SEGNET_HW, 3], dtype="bfloat16", width_mult=1.0,
+        params=n_params, flops=flops, ms=ms,
+        tflop_s=flops / (ms * 1e-3) / 1e12,
+        share_of_bf16_peak=flops / (ms * 1e-3) / PEAK_BF16_S,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        launches_per_call=device_launches(net),
+        peak_memory_mb=peak_mb,
+        run_segnet_ms=online_ms, run_segnet_input=[H, W],
+        run_segnet_launches_per_call=device_launches(online),
+        library_ms=None, card=card)
+    emit("segnet", **row)
+    return row
 
 
 class Parity:
@@ -829,13 +991,84 @@ def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
               card_vs_cpu=float((a.poses.cpu() - c.poses).abs().max()),
               vertices=len(system.keyframes))
 
+    # the quantized cloud of one KITTI-size keyframe: float32 arithmetic
+    # in the same order with true divisions on both devices, a stable sort
+    card, host = (pipeline._kf_cloud(*keyframe_cloud_inputs(system, dev),
+                                     system.K, system.cfg.mapper)
+                  for dev in (card_dev, "cpu"))
+    n = [int(card[3]), int(host[3])]
+    wrong = sum(int((card[i][:n[1]].cpu() != host[i][:n[1]]).sum())
+                for i in range(3))
+    par.check("keyframe cloud: count difference", abs(n[0] - n[1]), 0,
+              points=n)
+    par.check("keyframe cloud: quantized entries differing", wrong, 0)
+
+    # SegNet's 2x2 pooling on bf16 activations with planted ties: the
+    # first maximal entry of each window on both devices
+    act = torch.randint(0, 3, (1, 96, 120, 64), generator=gen).to(
+        torch.bfloat16) * 0.75
+    pools = {dev: segnet_mod.max_pool_with_indices(act.to(dev))
+             for dev in (card_dev, "cpu")}
+    win = act.reshape(1, 48, 2, 60, 2, 64)
+    tied = ((win == win.amax((2, 4), keepdim=True)).sum((2, 4)) > 1)
+    par.check("max_pool_with_indices with ties: indices differing", int(
+        (pools[card_dev][1].cpu() != pools["cpu"][1]).sum()), 0,
+        tied_window_share=float(tied.float().mean()))
+
+    segnet_parity(par, frames, card_dev)
+
+
+def segnet_parity(par: Parity, frames, card_dev: str) -> None:
+    """SegNet on the card and the CPU with the same seeded full-width
+    weights. One bfloat16 ConvBNRelu: all but 0.5% of the outputs equal
+    and the rest within one bfloat16 ulp of the layer's largest output
+    (float32 sums in another order round a bf16 tie either way, and
+    BatchNorm and ReLU carry that ulp on). The labels of one frame through
+    ``_run_segnet``: at least 99% of the pixels agree with the network in
+    float32 (TF32 off). A random network in bfloat16 amplifies those
+    one-ulp differences over its 27 layers until its labels are rounding
+    noise (on the CPU its bf16 labels agree with its own float64 ones on
+    73% of the pixels), so its card-against-CPU agreement is printed, not
+    held."""
+    gen = torch.Generator().manual_seed(5)
+    model = segnet_mod.create(SegNetConfig(), torch.Generator().manual_seed(0))
+    act = torch.rand((1, 96, 120, 64), generator=gen).to(torch.bfloat16)
+    layer = model.blocks[1]
+    with torch.no_grad():
+        y = {dev: copy.deepcopy(layer).to(dev)(act.to(dev)).cpu().float()
+             for dev in (card_dev, "cpu")}
+    a, b = y[card_dev], y["cpu"]
+    # one bf16 ulp at the layer's largest output
+    ulp = 2.0 ** (float(torch.floor(torch.log2(b.abs().max()))) - 7)
+    par.check("segnet ConvBNRelu bf16: outputs differing (share)",
+              float((a != b).float().mean()), 0.005)
+    par.check("segnet ConvBNRelu bf16: largest difference (in bf16 ulps "
+              "of the largest output)", float((a - b).abs().max()) / ulp,
+              1.0)
+
+    labels = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = segnet_config()
+        cfg = cfg.replace(segnet=dataclasses.replace(cfg.segnet, dtype=dtype))
+        for dev in (card_dev, "cpu"):
+            s = SlamSystem(cfg, device=dev)
+            labels[dtype, dev] = s._run_segnet(
+                s._upload_gray(frames[3][0])).cpu()
+    agree = {d: float((labels[d, card_dev] == labels[d, "cpu"]).float()
+                      .mean()) for d in ("float32", "bfloat16")}
+    par.check("segnet labels of one frame, float32: pixels disagreeing "
+              "(share)", 1.0 - agree["float32"], 0.01,
+              bf16_agreement_printed_only=agree["bfloat16"],
+              classes=int(labels["float32", "cpu"].unique().numel()))
+
 
 def main() -> int:
     info = phase_device()
     phase_build()
     row = phase_kernels()
-    _, frames = phase_slice(info["card"])
+    _, frames, slice_system = phase_slice(info["card"])
     epoch = phase_epoch(info["card"])
+    phase_segnet(slice_system, frames, info["card"])
     phase_stages(frames)
     phase_candidates(epoch)
     phase_parity(frames, epoch["system"])

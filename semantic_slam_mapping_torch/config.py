@@ -1,7 +1,7 @@
 """Configuration of the stereo SLAM system, as plain dataclasses.
 
 A copy of the sections of ``semantic_slam_mapping_tpu/config.py`` that the
-frontend and the keyframe epoch read, with the same field names and defaults, so a JAX config
+frontend, the keyframe epoch, SegNet and the map read, with the same field names and defaults, so a JAX config
 converts one-to-one (``utils.convert.config_from_dict``). The port keeps
 its own copy: it imports nothing of the JAX package.
 
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -208,9 +208,47 @@ class LooperConfig:
 
 
 @dataclass(frozen=True)
+class SegNetConfig:
+    """SegNet segmentation: the input size (padded up to a multiple of 32),
+    12 classes, the working dtype, whether ``SlamSystem`` runs it online on
+    each keyframe, the channel width multiplier (1.0: the full VGG16
+    SegNet) and the path of a trained pickle (None: a seeded random
+    init)."""
+
+    input_height: int = 360
+    input_width: int = 480
+    num_classes: int = 12
+    dtype: str = "bfloat16"
+    online: bool = False
+    width_mult: float = 1.0
+    weights: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class MapperConfig:
+    """Dense semantic map: the voxel leaf, the depth cutoff, the rebuild
+    policy (every ``full_rebuild_every``-th update a full rebuild from every
+    ``full_rebuild_stride``-th keyframe, else the last
+    ``incremental_window``), the motion-overlay thresholds, the semantic
+    moving mask's dilation, the per-keyframe voxel budget and the pixel
+    stride of the keyframe cloud."""
+
+    resolution: float = 0.1
+    max_distance: float = 40.0
+    full_rebuild_every: int = 15
+    full_rebuild_stride: int = 2
+    incremental_window: int = 5
+    motion_area_threshold: int = 1000
+    motion_overlay_portion_threshold: float = 0.143
+    dilate_iters: int = 2
+    max_points_per_frame: int = 1 << 17
+    cloud_stride: int = 2
+
+
+@dataclass(frozen=True)
 class SlamConfig:
-    """The stereo frontend's and keyframe epoch's part of the JAX
-    package's ``SlamConfig``."""
+    """The stereo frontend's, keyframe epoch's, SegNet's and map's part of
+    the JAX package's ``SlamConfig``."""
 
     camera: CameraConfig = field(default_factory=CameraConfig)
     sgbm: SgbmConfig = field(default_factory=SgbmConfig)
@@ -224,6 +262,8 @@ class SlamConfig:
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     pose_graph: PoseGraphConfig = field(default_factory=PoseGraphConfig)
     looper: LooperConfig = field(default_factory=LooperConfig)
+    segnet: SegNetConfig = field(default_factory=SegNetConfig)
+    mapper: MapperConfig = field(default_factory=MapperConfig)
 
     def replace(self, **kwargs: Any) -> "SlamConfig":
         return dataclasses.replace(self, **kwargs)

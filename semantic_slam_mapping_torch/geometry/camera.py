@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from semantic_slam_mapping_torch.config import CameraConfig
@@ -59,6 +60,21 @@ def backproject(K: Intrinsics, uv: torch.Tensor,
     x = (uv[..., 0] - K.cx) * depth / K.fx
     y = (uv[..., 1] - K.cy) * depth / K.fy
     return torch.stack([x, y, depth], dim=-1)
+
+
+def disparity_to_depth(K: Intrinsics, disparity: torch.Tensor,
+                       min_disparity: float = 0.5) -> torch.Tensor:
+    """Stereo disparity (px) -> metric depth bf / d; 0 where d <= min.
+    ``bf`` is fx * baseline rounded to float32 and the quotient a true
+    float32 division, as the JAX package computes it with float32
+    intrinsics (torch would turn a Python-float numerator into a
+    reciprocal times a scalar)."""
+    valid = disparity > min_disparity
+    bf = torch.tensor(np.float32(K.fx) * np.float32(K.baseline),
+                      dtype=torch.float32, device=disparity.device)
+    depth = torch.div(bf, torch.where(valid, disparity,
+                                      torch.ones_like(disparity)))
+    return torch.where(valid, depth, torch.zeros_like(depth))
 
 
 def triangulate_stereo(K: Intrinsics, uv_left: torch.Tensor,

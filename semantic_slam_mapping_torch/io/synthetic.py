@@ -22,13 +22,15 @@ import torch
 
 from semantic_slam_mapping_torch.geometry import se3
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics, pixel_grid
+from semantic_slam_mapping_torch.mapping import semantics as _semcls
 
-# CamVid/SegNet class ids, as the JAX package's mapping/semantics.py
-CLASS_SKY = 0
-CLASS_BUILDING = 1
-CLASS_ROAD = 4
-CLASS_CAR = 9
-CLASS_PEDESTRIAN = 10
+# the SegNet class ids, so that ground-truth labels and the map's class
+# filters agree
+CLASS_SKY = _semcls.SKY
+CLASS_BUILDING = _semcls.BUILDING
+CLASS_ROAD = _semcls.ROAD
+CLASS_CAR = _semcls.VEHICLE
+CLASS_PEDESTRIAN = _semcls.PEDESTRIAN
 
 
 class World(NamedTuple):

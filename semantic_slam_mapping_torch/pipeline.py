@@ -2,26 +2,31 @@
 out.
 
 Counterpart of the stereo path of
-``semantic_slam_mapping_tpu/pipeline.py::SlamSystem``, without the map and
-SegNet. Per frame, the frontend (``frontend/tracker.py``) is queued on the
-card; ``process_stream`` keeps up to ``depth`` frames in flight before the
-oldest one's host-side work reads its results. That work
-(``_postprocess_frame``) reads the pose back, applies the correction
-transport, recovers a LOST tracker against the reference keyframes, and
-checks the keyframe gate. A keyframe epoch then runs, in this order:
+``semantic_slam_mapping_tpu/pipeline.py::SlamSystem``. Per frame, the
+frontend (``frontend/tracker.py``) is queued on the card; ``process_stream``
+keeps up to ``depth`` frames in flight before the oldest one's host-side
+work reads its results. That work (``_postprocess_frame``) reads the pose
+back, applies the correction transport, recovers a LOST tracker against the
+reference keyframes, and checks the keyframe gate. A keyframe epoch then
+runs, in this order:
 
 1. ORB features and their 3-D points from the disparity;
 2. the sparse BoW vector;
-3. the keyframe record, its float16 images kept on the card;
-4. the harvest of the previous epoch's deferred work;
-5. the odometry edge to the previous keyframe;
-6. the PnP edges to the nearby keyframes, queued now, harvested next epoch;
-7. BoW loop scoring, queued now; the candidates are picked and verified at
+3. online SegNet labels, when ``cfg.segnet.online`` and the frame brought
+   no labels;
+4. the keyframe record, its float16 images and labels kept on the card;
+5. the harvest of the previous epoch's deferred work;
+6. the odometry edge to the previous keyframe;
+7. the PnP edges to the nearby keyframes, queued now, harvested next epoch;
+8. BoW loop scoring, queued now; the candidates are picked and verified at
    the next epoch (PnP gate, then the quad-match/VO re-measure or the
    reverse PnP) and harvested the epoch after;
-8. the pose-graph optimisation when the accumulated chi^2 asks for it,
+9. the pose-graph optimisation when the accumulated chi^2 asks for it,
    with the frontend re-anchor and its PnP refinement;
-9. the eviction of old keyframes' device images.
+10. with ``enable_mapping``, the keyframe's camera-frame voxel cloud,
+    queued now; its count is read next epoch, its points the epoch after,
+    when they go into the voxel map under the rebuild policy;
+11. the eviction of old keyframes' device images.
 
 ``finish`` drains the deferred work, runs a forced global optimisation and
 exports every frame through its keyframe anchor.
@@ -48,12 +53,16 @@ import torch
 from semantic_slam_mapping_torch.backend import looper as lp
 from semantic_slam_mapping_torch.backend import pnp as pnp_mod
 from semantic_slam_mapping_torch.backend import pose_graph as pg
-from semantic_slam_mapping_torch.config import OrbConfig, SlamConfig
+from semantic_slam_mapping_torch.config import (MapperConfig, OrbConfig,
+                                                SlamConfig)
 from semantic_slam_mapping_torch.device import resolve
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
 from semantic_slam_mapping_torch.geometry import se3_np
-from semantic_slam_mapping_torch.geometry.camera import (Intrinsics,
-                                                         triangulate_stereo)
+from semantic_slam_mapping_torch.geometry.camera import (
+    Intrinsics, disparity_to_depth, triangulate_stereo)
+from semantic_slam_mapping_torch.mapping import mapper as mp
+from semantic_slam_mapping_torch.mapping.native import NativeVoxelMap
+from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops import orb
 from semantic_slam_mapping_torch.utils.timing import StageTimer
@@ -75,6 +84,61 @@ def extract_features(left: torch.Tensor, disparity: torch.Tensor,
     d = im.bilinear_sample(disparity, feats.xy)
     xyz = triangulate_stereo(K, feats.xy, torch.clamp(d, min=0.5))
     return feats, xyz, feats.valid & (d > 0.5)
+
+
+# float32(1/255): XLA folds the JAX package's division of a u8 color by
+# 255.0 into a multiply by this constant
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def _kf_cloud(disp_f16: torch.Tensor, left_f16: torch.Tensor,
+              color: Optional[torch.Tensor], labels: Optional[torch.Tensor],
+              moving_mask: Optional[torch.Tensor], K: Intrinsics,
+              mcfg: MapperConfig):
+    """Keyframe -> compacted camera-frame voxel cloud, quantized: (int16
+    positions in 1/64 m, u8 colors, int8 labels, 0-d int32 count), the
+    first ``count`` rows valid. Counterpart of the JAX package's
+    ``_kf_cloud_jit``: every ``cloud_stride``-th pixel, depth from the
+    float16 disparity with the full-resolution intrinsics, back-projection
+    with the intrinsics divided by the stride (in float32), the gray image
+    as color when there is none, label 1 where there are no labels."""
+    st = max(int(mcfg.cloud_stride), 1)
+    dev = disp_f16.device
+    disp = disp_f16.float()
+    if st > 1:
+        disp = disp[::st, ::st]
+        left_f16 = left_f16[::st, ::st]
+        color = color[::st, ::st] if color is not None else None
+        labels = labels[::st, ::st] if labels is not None else None
+        moving_mask = (moving_mask[::st, ::st] if moving_mask is not None
+                       else None)
+    # disparities are in full-resolution pixels ...
+    depth = disparity_to_depth(K, disp)
+    if st > 1:
+        # ... while the subsampled pixel grid projects with K / stride
+        s32 = np.float32(st)
+        K = K._replace(**{k: float(np.float32(getattr(K, k)) / s32)
+                          for k in ("fx", "fy", "cx", "cy")})
+    if color is None:
+        color = left_f16.float()[..., None].expand(*disp.shape, 3)
+    elif torch.is_floating_point(color):
+        color = color.float()
+    else:
+        # a uint8 [0, 255] keyframe color
+        color = color.float() * _INV_255
+    if labels is None:
+        labels = torch.ones(disp.shape, dtype=torch.int64, device=dev)
+    mov = (moving_mask if moving_mask is not None
+           else torch.zeros(disp.shape, dtype=torch.bool, device=dev))
+    cloud = mp.generate_point_cloud(depth, color, labels, mov,
+                                    torch.eye(4, device=dev), K, mcfg,
+                                    budget=mcfg.max_points_per_frame)
+    xyz_q = torch.clamp(torch.round(cloud.xyz * 64.0),
+                        -32767, 32767).to(torch.int16)
+    rgb_q = torch.clamp(torch.round(cloud.rgb * 255.0), 0, 255).to(
+        torch.uint8)
+    return (xyz_q, rgb_q, cloud.label.to(torch.int8),
+            cloud.valid.sum().to(torch.int32))
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -144,6 +208,11 @@ class Keyframe:
     left_dev: Optional[torch.Tensor] = None
     right_dev: Optional[torch.Tensor] = None
     disparity_dev: Optional[torch.Tensor] = None
+    color: Optional[np.ndarray] = None            # (H, W, 3), for the map
+    # labels: given ones stay on the host; online SegNet's stay on the
+    # device (an eager readback would wait on the frames in flight)
+    semantic_host: Optional[np.ndarray] = None    # (H, W) int8
+    semantic_dev: Optional[torch.Tensor] = None
 
     def _host(self, attr: str) -> Optional[np.ndarray]:
         h = getattr(self, attr + "_host")
@@ -191,6 +260,10 @@ class Keyframe:
         return self._feats_host(3, "feat_valid")
 
     @property
+    def semantic(self) -> Optional[np.ndarray]:
+        return self._host("semantic")
+
+    @property
     def left(self) -> np.ndarray:
         return self._host("left")
 
@@ -224,10 +297,15 @@ class SlamSystem:
     """Single-process stereo SLAM engine. ``vocab`` (a
     ``backend.looper.Vocabulary``, e.g. from ``build_vocabulary`` or
     ``load_vocabulary``) turns loop detection on; without it the engine
-    keeps odometry and nearby-keyframe edges only."""
+    keeps odometry and nearby-keyframe edges only. ``enable_mapping``
+    builds the semantic voxel map (``self.map``, the C++ map of
+    ``mapping/native.py``); ``cfg.segnet.online`` labels keyframes that
+    bring no labels with SegNet (``cfg.segnet.weights``, or a network drawn
+    from ``seed``)."""
 
     def __init__(self, cfg: SlamConfig,
                  vocab: Optional[lp.Vocabulary] = None, seed: int = 0,
+                 enable_mapping: bool = False,
                  device: str | torch.device = "cuda"):
         self.device = resolve(device)
         self.cfg = cfg
@@ -295,6 +373,24 @@ class SlamSystem:
         self._db_w = None
         self._db_n = 0
         self.timer = StageTimer()
+        self.map = None
+        self._map_updates = 0
+        self._mapped_ids: set = set()
+        # kf_id -> host (xyz, rgb, label) of its camera-frame cloud: made
+        # once per keyframe, moved by the current pose at each insert
+        self._cloud_cache: dict = {}
+        if enable_mapping:
+            self.map = NativeVoxelMap(cfg.mapper.resolution)
+        self._segnet = None
+        if cfg.segnet.online:
+            if cfg.segnet.weights:
+                model, meta = segnet_mod.load_checkpoint(cfg.segnet.weights)
+                log.info("segnet weights %s (mIoU %.3f)", cfg.segnet.weights,
+                         meta.get("miou", float("nan")))
+            else:
+                model = segnet_mod.create(
+                    cfg.segnet, torch.Generator().manual_seed(seed))
+            self._segnet = model.to(self.device)
 
     # ------------------------------------------------------------------
     def _upload_gray(self, img) -> torch.Tensor:
@@ -332,8 +428,8 @@ class SlamSystem:
         self._dispatched += 1
         return out
 
-    def _postprocess_frame(self, out: tracker.FrameResult, left, right
-                           ) -> None:
+    def _postprocess_frame(self, out: tracker.FrameResult, left, right,
+                           color=None, semantic=None) -> None:
         """Host-side per-frame work: the pose and the frame's numbers are
         read back, pending corrections applied, a LOST tracker recovered,
         and the keyframe gate checked."""
@@ -362,27 +458,35 @@ class SlamSystem:
             self._lost_recover(left, out.disparity)
 
         if self._keyframe_due(self.trajectory[-1]):
-            self._insert_keyframe(out, self.trajectory[-1], left, right)
+            self._insert_keyframe(out, self.trajectory[-1], left, right,
+                                  color, semantic)
 
-    def process_frame(self, left, right) -> Optional[tracker.FrameResult]:
-        """Feed one stereo frame; returns its FrameResult (None for the
-        first frame, which only primes the pair buffer)."""
+    def process_frame(self, left, right, color=None, semantic=None
+                      ) -> Optional[tracker.FrameResult]:
+        """Feed one stereo frame, with its color image ((H, W, 3) uint8 or
+        float in [0, 1]) and labels ((H, W) class ids) for the map when
+        there are any; returns its FrameResult (None for the first frame,
+        which only primes the pair buffer)."""
         out = self._dispatch_frame(left, right)
         if out is not None:
-            self._postprocess_frame(out, self._prev[0], self._prev[1])
+            self._postprocess_frame(out, self._prev[0], self._prev[1],
+                                    color, semantic)
         return out
 
     def process_stream(self, frames, depth: int = 6) -> None:
-        """Pipelined loop over ``frames`` yielding (left, right, ...)
-        tuples: up to ``depth`` frames are queued on the device before the
-        oldest one's host-side work runs, so a keyframe epoch overlaps the
-        next frames' frontends. Results equal those of process_frame up to
-        the correction transport of a rewrite while frames are in flight."""
+        """Pipelined loop over ``frames`` yielding (left, right[, color[,
+        semantic]]) tuples: up to ``depth`` frames are queued on the device
+        before the oldest one's host-side work runs, so a keyframe epoch
+        overlaps the next frames' frontends. Results equal those of
+        process_frame up to the correction transport of a rewrite while
+        frames are in flight."""
         pending = deque()
         for item in frames:
             out = self._dispatch_frame(item[0], item[1])
             if out is not None:
-                pending.append((out, self._prev[0], self._prev[1]))
+                pending.append((out, self._prev[0], self._prev[1],
+                                item[2] if len(item) > 2 else None,
+                                item[3] if len(item) > 3 else None))
             while len(pending) > depth:
                 self._postprocess_frame(*pending.popleft())
         while pending:
@@ -429,7 +533,8 @@ class SlamSystem:
         return extract_features(left, disparity, self.K, self.cfg.orb)
 
     # ------------------------------------------------------------------
-    def _insert_keyframe(self, out, pose, left, right):
+    def _insert_keyframe(self, out, pose, left, right, color=None,
+                         semantic=None):
         cfg = self.cfg
         kf_id = len(self.keyframes)
         if kf_id >= cfg.pose_graph.max_keyframes:
@@ -443,9 +548,13 @@ class SlamSystem:
                                        cfg.looper.scoring_level,
                                        budget=cfg.looper.bow_budget)
                    if self.vocab is not None else None)
+        if semantic is None and self._segnet is not None:
+            with self.timer.stage("kf/segnet"):
+                semantic = self._run_segnet(left, color)
         with self.timer.stage("kf/store"):
-            kf = self._store_keyframe(out, pose, left, right, kf_id, feats,
-                                      xyz, feat_valid, bow)
+            kf = self._store_keyframe(out, pose, left, right, color,
+                                      semantic, kf_id, feats, xyz,
+                                      feat_valid, bow)
 
         # the previous epoch's deferred work first: its device programs
         # have finished behind the frontends by now
@@ -471,6 +580,12 @@ class SlamSystem:
             with self.timer.stage("kf/optimize"):
                 self._maybe_optimize()
 
+        # every keyframe is mapped, the first too: the cloud is queued now,
+        # the readback and the map insert are deferred
+        if self.map is not None:
+            with self.timer.stage("kf/map"):
+                self._dispatch_map_update(kf, out)
+
         # keep the newest _DEV_CACHE_KEYFRAMES keyframes' device copies;
         # older ones (and rebuilt loop candidates) go to the host
         hi = len(self.keyframes) - _DEV_CACHE_KEYFRAMES
@@ -484,17 +599,20 @@ class SlamSystem:
             if old.left_dev is None and old.feats_dev is None:
                 continue
             old._host("left"), old._host("right"), old._host("disparity")
+            old._host("semantic")
             old.left_dev = old.right_dev = old.disparity_dev = None
+            old.semantic_dev = None
             for i, a in enumerate(("feat_xy", "feat_desc",
                                    "feat_xyz", "feat_valid")):
                 old._feats_host(i, a)
             old.feats_dev = None
 
-    def _store_keyframe(self, out, pose, left, right, kf_id, feats, xyz,
-                        feat_valid, bow) -> Keyframe:
+    def _store_keyframe(self, out, pose, left, right, color, semantic,
+                        kf_id, feats, xyz, feat_valid, bow) -> Keyframe:
         with self.timer.stage("store/readback"):
-            kf = self._build_keyframe(out, pose, left, right, kf_id, feats,
-                                      xyz, feat_valid, bow)
+            kf = self._build_keyframe(out, pose, left, right, color,
+                                      semantic, kf_id, feats, xyz,
+                                      feat_valid, bow)
         self.keyframes.append(kf)
         self.ref_frames.append(kf)
         if self._anchors:
@@ -503,15 +621,21 @@ class SlamSystem:
         self.graph.vertex_valid[kf_id] = True
         return kf
 
-    def _build_keyframe(self, out, pose, left, right, kf_id, feats, xyz,
-                        feat_valid, bow) -> Keyframe:
+    def _build_keyframe(self, out, pose, left, right, color, semantic,
+                        kf_id, feats, xyz, feat_valid, bow) -> Keyframe:
+        on_host = isinstance(semantic, np.ndarray)
         return Keyframe(
             kf_id=kf_id, frame_index=self.frame_count - 1,
             pose=np.asarray(pose, np.float32),
             bow_dev=(bow.idx, bow.w) if bow is not None else None,
             feats_dev=(feats.xy, feats.desc, xyz, feat_valid),
             left_dev=left.half(), right_dev=right.half(),
-            disparity_dev=out.disparity.half())
+            disparity_dev=out.disparity.half(),
+            color=np.asarray(color) if color is not None else None,
+            semantic_host=semantic.astype(np.int8) if on_host else None,
+            semantic_dev=(semantic.to(self.device, torch.int8)
+                          if semantic is not None and not on_host
+                          else None))
 
     # ------------------------------------------------------------------
     def _add_edge(self, i, j, T_rel, is_loop, chi2=0.0, info=None):
@@ -905,6 +1029,127 @@ class SlamSystem:
                                       exact))
 
     # ------------------------------------------------------------------
+    def _run_segnet(self, left: torch.Tensor, color=None) -> torch.Tensor:
+        """Online labels of one keyframe, (H, W) int64 on the device: the
+        color image (uint8 [0, 255] or float [0, 1]; the gray image when
+        there is none) resized with antialiasing to the input size padded
+        to a multiple of 32, the network and its argmax, then a nearest
+        resize back (interpolating class ids would invent classes)."""
+        dev = self.device
+        if color is not None:
+            img = torch.as_tensor(np.asarray(color)).to(dev)
+            if torch.is_floating_point(img):
+                img = img.float()
+            else:
+                # a true division on every device (a Python-float divisor
+                # becomes a reciprocal multiply on the card)
+                img = img.float() / torch.tensor(255.0, device=dev)
+        else:
+            img = left.float()[..., None].expand(*left.shape, 3)
+        H0, W0 = img.shape[:2]
+        h = -(-self.cfg.segnet.input_height // 32) * 32
+        w = -(-self.cfg.segnet.input_width // 32) * 32
+        x = im.resize_bilinear(img.permute(2, 0, 1), (h, w)).permute(1, 2, 0)
+        labels = segnet_mod.infer(self._segnet, x[None])[0]
+        return im.resize_nearest(labels[None], (H0, W0))[0]
+
+    # ------------------------------------------------------------------
+    def _dispatch_kf_cloud(self, kf: Keyframe, moving_mask=None):
+        """Queue this keyframe's camera-frame voxel cloud (pose-free, so it
+        is made once and moved by the current pose at each insert) and
+        stage its count to the host. Returns a two-stage continuation: the
+        first reads the count and stages the next power-of-two prefix of
+        the quantized arrays (at least 256 rows), the second reads them
+        into ``_cloud_cache[kf_id]``."""
+        dev = self.device
+        color = _upload(kf.color, dev) if kf.color is not None else None
+        # online SegNet's labels are on the device already
+        sem = (kf.semantic_dev if kf.semantic_dev is not None
+               else kf.semantic_host)
+        labels = None
+        if sem is not None:
+            labels = (sem if isinstance(sem, torch.Tensor)
+                      else _upload(sem, dev)).long()
+        xyz_q, rgb_q, lbl_q, n_dev = _kf_cloud(
+            _dev_img(kf, "disparity", dev), _dev_img(kf, "left", dev),
+            color, labels, moving_mask, self.K, self.cfg.mapper)
+        read_n = _stage_to_host([n_dev])
+
+        def stage2():
+            n = int(read_n()[0])
+            L = 1 << max(int(np.ceil(np.log2(max(n, 1)))), 8)
+            L = min(L, self.cfg.mapper.max_points_per_frame)
+            read = _stage_to_host([xyz_q[:L], rgb_q[:L], lbl_q[:L]])
+
+            def stage3():
+                xq, rq, lq = read()
+                self._cloud_cache[kf.kf_id] = (
+                    xq[:n].astype(np.float32) / 64.0,
+                    rq[:n].astype(np.float32) / 255.0,
+                    lq[:n].astype(np.int32))
+            return stage3
+        return stage2
+
+    def _kf_cloud_camera(self, kf: Keyframe, moving_mask=None):
+        """The camera-frame cloud made and read at once (a keyframe mapped
+        before its deferred cloud landed, e.g. after a resume)."""
+        stage = self._dispatch_kf_cloud(kf, moving_mask)
+        while callable(stage):
+            stage = stage()
+        return self._cloud_cache[kf.kf_id]
+
+    def _dispatch_map_update(self, kf: Keyframe, out):
+        """Queue the cloud now; its count is read at the next epoch, and the
+        epoch after reads the points and runs the map update, two epochs
+        after the keyframe as in the JAX package."""
+        with self.timer.stage("map/cloud"):
+            stage2 = self._dispatch_kf_cloud(kf, out.moving_mask)
+
+        def s2():
+            stage3 = stage2()
+
+            def s3():
+                with self.timer.stage("map/readback"):
+                    stage3()
+                with self.timer.stage("map/update"):
+                    self._update_map(kf)
+            return s3
+        self._pending_work.append(s2)
+
+    def _insert_kf_into_map(self, kf: Keyframe, moving_mask=None):
+        if kf.kf_id not in self._cloud_cache:
+            with self.timer.stage("map/cloud_sync"):
+                self._kf_cloud_camera(kf, moving_mask)
+        xyz_c, rgb, lbl = self._cloud_cache[kf.kf_id]
+        R, t = kf.pose[:3, :3], kf.pose[:3, 3]
+        self.map.insert(xyz_c @ R.T.astype(np.float32) +
+                        t.astype(np.float32), rgb, lbl)
+
+    def _update_map(self, kf: Keyframe):
+        """The map's update policy: every ``full_rebuild_every``-th update a
+        full rebuild from every ``full_rebuild_stride``-th keyframe (their
+        poses may have moved), else the keyframes of the last
+        ``incremental_window`` not yet mapped. Only keyframes up to ``kf``
+        take part: newer ones have their own updates in flight."""
+        cfg = self.cfg.mapper
+        done = self.keyframes[:kf.kf_id + 1]
+        self._map_updates += 1
+        if self._map_updates % cfg.full_rebuild_every == 0:
+            self.map.clear()
+            self._mapped_ids = set()
+            for k in done[::cfg.full_rebuild_stride]:
+                self._insert_kf_into_map(k)
+                self._mapped_ids.add(k.kf_id)
+        else:
+            for k in done[-cfg.incremental_window:]:
+                if k.kf_id in self._mapped_ids:
+                    continue
+                self._insert_kf_into_map(k)
+                self._mapped_ids.add(k.kf_id)
+        log.info("map: %d voxels after update %d", len(self.map),
+                 self._map_updates)
+
+    # ------------------------------------------------------------------
     def finish(self) -> np.ndarray:
         """Drain the deferred work, run a forced global optimisation, and
         export every frame through its keyframe anchor: (F, 4, 4)."""
@@ -916,3 +1161,63 @@ class SlamSystem:
             traj.append(pose if kf_id < 0
                         else self.keyframes[kf_id].pose @ T_rel)
         return np.stack(traj)
+
+    # ------------------------------------------------------------------
+    def save_g2o(self, path: str):
+        """Write the graph as VERTEX_SE3:QUAT and EDGE_SE3:QUAT lines, each
+        edge with its own information (the upper triangle of a diagonal 6x6
+        block), so that reading it back gives the same problem."""
+        with open(path, "w") as f:
+            for kf in self.keyframes:
+                q = se3_np.rotation_to_quaternion(kf.pose[:3, :3])
+                t = kf.pose[:3, 3]
+                f.write(f"VERTEX_SE3:QUAT {kf.kf_id} "
+                        f"{t[0]} {t[1]} {t[2]} {q[1]} {q[2]} {q[3]} {q[0]}\n")
+            ne = self.n_edges
+            ei, ej = self.graph.edge_i[:ne], self.graph.edge_j[:ne]
+            eT, ew = self.graph.edge_T[:ne], self.graph.edge_info[:ne]
+            for i in range(ne):
+                q = se3_np.rotation_to_quaternion(eT[i, :3, :3])
+                t = eT[i, :3, 3]
+                info_upper = " ".join(
+                    repr(float(ew[i])) if r == c else "0.0"
+                    for r in range(6) for c in range(r, 6))
+                f.write(f"EDGE_SE3:QUAT {ei[i]} {ej[i]} "
+                        f"{t[0]} {t[1]} {t[2]} {q[1]} {q[2]} {q[3]} {q[0]} "
+                        f"{info_upper}\n")
+
+
+def load_g2o(path: str) -> dict:
+    """Read a file of :meth:`SlamSystem.save_g2o` back: ``vertex_ids``
+    (V,), ``poses`` (V, 4, 4), ``edge_i`` and ``edge_j`` (E,), ``edge_T``
+    (E, 4, 4) and ``edge_info`` (E,), the [0, 0] entry of each 6x6
+    information block."""
+    vid, poses = [], []
+    ei, ej, eT, ew = [], [], [], []
+
+    def pose(vals):
+        tx, ty, tz, qx, qy, qz, qw = (float(v) for v in vals)
+        T = np.eye(4)
+        T[:3, :3] = se3_np.quaternion_to_rotation(
+            np.array([qw, qx, qy, qz]))
+        T[:3, 3] = (tx, ty, tz)
+        return T
+
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "VERTEX_SE3:QUAT":
+                vid.append(int(parts[1]))
+                poses.append(pose(parts[2:9]))
+            elif parts[0] == "EDGE_SE3:QUAT":
+                ei.append(int(parts[1]))
+                ej.append(int(parts[2]))
+                eT.append(pose(parts[3:10]))
+                ew.append(float(parts[10]))
+    return dict(vertex_ids=np.array(vid, np.int32),
+                poses=np.stack(poses) if poses else np.zeros((0, 4, 4)),
+                edge_i=np.array(ei, np.int32), edge_j=np.array(ej, np.int32),
+                edge_T=np.stack(eT) if eT else np.zeros((0, 4, 4)),
+                edge_info=np.array(ew, np.float64))

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, as plain functions of numpy
-data (no JAX import): a config dict, intrinsics, a tracker state and a
-synthetic world each become the port's counterpart. The ported slices have
-no learned weights.
+data (no JAX import): a config dict, intrinsics, a tracker state, a
+synthetic world and SegNet's Flax parameters each become the port's
+counterpart.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from semantic_slam_mapping_torch.io.synthetic import World
 
 def config_from_dict(d: Mapping[str, Any]) -> cfg_mod.SlamConfig:
     """``dataclasses.asdict`` of a JAX ``SlamConfig`` -> the port's config.
-    Sections the port does not read (map, SegNet, ...) are dropped; a field the port does
-    not know raises."""
+    Sections the port does not read (dataset, parallel) are dropped; a field
+    the port does not know raises."""
     sections = {}
     for f in dataclasses.fields(cfg_mod.SlamConfig):
         if f.name in d:
@@ -68,3 +68,41 @@ def world_from_numpy(boxes, box_class, ground_y, backdrop_z,
         backdrop_z=_t(backdrop_z, device, torch.float32),
         box_velocity=(None if box_velocity is None
                       else _t(box_velocity, device, torch.float32)))
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x).astype(np.float32))
+
+
+def segnet_state_from_flax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any]
+                           ) -> dict:
+    """SegNet's Flax ``params`` and ``batch_stats`` (nested dicts of numpy
+    arrays) -> the port's ``SegNet.state_dict()``, in float32.
+
+    Flax names the layers ``ConvBNRelu_<i>`` in creation order (13 encoder,
+    then 13 decoder layers) and the classifier ``Conv_0``; the suffix is
+    the index into ``SegNet.blocks`` (the dict keys sort as strings, so
+    they are not taken in key order). Kernels are HWIO; torch wants OIHW."""
+    state = {}
+
+    def conv(prefix, p):
+        state[prefix + "weight"] = _f32(p["kernel"]).permute(3, 2, 0, 1) \
+            .contiguous()
+        state[prefix + "bias"] = _f32(p["bias"])
+
+    for name, p in params.items():
+        if name == "Conv_0":
+            conv("classifier.", p)
+            continue
+        kind, _, idx = name.rpartition("_")
+        if kind != "ConvBNRelu":
+            raise KeyError(f"unknown SegNet layer {name!r}")
+        pre = f"blocks.{int(idx)}."
+        conv(pre + "conv.", p["Conv_0"])
+        bn, stats = p["BatchNorm_0"], batch_stats[name]["BatchNorm_0"]
+        state[pre + "bn.scale"] = _f32(bn["scale"])
+        state[pre + "bn.bias"] = _f32(bn["bias"])
+        state[pre + "bn.mean"] = _f32(stats["mean"])
+        state[pre + "bn.var"] = _f32(stats["var"])
+    return state

@@ -1,5 +1,7 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package
-(checked in a fresh interpreter, since this test process has JAX loaded)."""
+(checked in a fresh interpreter, since this test process has JAX loaded);
+the walk reaches every module of the port, the map, SegNet and the
+checkpoint among them."""
 
 import pkgutil
 import subprocess
@@ -23,9 +25,13 @@ print(len(names), bad)
 
 
 def test_port_imports_no_jax():
-    expected = len(list(pkgutil.walk_packages(
+    names = {m.name for m in pkgutil.walk_packages(
         semantic_slam_mapping_torch.__path__,
-        semantic_slam_mapping_torch.__name__ + ".")))
+        semantic_slam_mapping_torch.__name__ + ".")}
+    assert {f"semantic_slam_mapping_torch.{m}" for m in (
+        "mapping.mapper", "mapping.native", "mapping.semantics",
+        "models.segnet", "utils.checkpoint")} <= names
+    expected = len(names)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
