@@ -13,13 +13,43 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    nvcc for sm_90a into build/torch_kernels/ (``-Xptxas -v`` prints its
    registers and spills), and the C++ voxel map with g++.
 3. ``kernels``: holds each kernel against its plain PyTorch version on the
-   card, exactly (tolerance 0) and in the volume's dtype, at the main
-   path's shape in float32 and bfloat16, and at a few small and ragged
-   shapes; then times the kernel and each of its two launches with CUDA
-   events (median of 25 batches of 10 calls after 3 warm-ups; the 75 MB
-   volume exceeds the 50 MB L2, so it runs cold), and the launches of
-   variants built with one part switched off, to show what bounds it.
-4. ``slice``: renders 10 KITTI-size (376x1248) stereo frames of a
+   card, exactly (tolerance 0) and in the volume's dtype, in float32 and
+   bfloat16, at the command line's KITTI shape (376, 1241, 80), at an odd
+   height (375, 1241, 80), at the synthetic phases' (376, 1248, 80), and
+   at a few small and ragged shapes; then times the kernel at 1241 and
+   1248 and each of its two launches with CUDA events (median of 25
+   batches of 10 calls after 3 warm-ups; the 75 MB volume exceeds the
+   50 MB L2, so it runs cold), and the launches of variants built with one
+   part switched off, to show what bounds it.
+4. ``cli``: the user's workflow through the command line, as subprocesses
+   on the card that run ``semantic_slam_mapping_torch.cli`` as
+   ``__main__`` (what ``python -m`` does) after zeroing the kernel counts,
+   and print the counts when they exit. A KITTI-layout directory of 30
+   frames at 376x1241 (a fixed-seed street at 0.8 m a frame; image_0/1/2
+   and the renderer's labels written by the port's PNG codec with each
+   row's filter chosen as libpng chooses it, poses.txt, and a
+   parameters.txt with the KITTI 00-02 camera) goes through
+   ``make-vocab``, ``slam --vocab --semantic-dir --gt --parameters`` and
+   ``pnp``; a TUM-layout directory of the first 30 frames of the rgbd
+   phase's course scaled to a room (radius 2 m) at 480x640 (TUM fr1
+   intrinsics, 16-bit depth at TUM's 5000 a metre with no reading past
+   10 m, groundtruth.txt) through ``rgbd --gt``. Each must exit 0 and
+   write a trajectory of 30 rows whose ATE RMSE is under 0.3 m (slam),
+   1 m (pnp) or 0.3 m times the room's scale (rgbd); slam's traj.g2o must
+   read back and it must print its frames/s line; SGM must run twice per
+   tracked frame in slam and pnp. Prints frames/s, and the PNG decode time
+   a frame of the reader and of one 376x1241 grey frame written with
+   filter 0, with Paeth and with libpng's choice, on the host CPU.
+5. ``rgbd``: the whole RGB-D system on the card: 200 frames at 480x640
+   (TUM fr1 intrinsics) of the loop world at radius 10 m (1.25 laps, the
+   revisit from frame 160), gray, depth and the renderer's labels through
+   ``SlamSystem(cfg, vocab, rgbd=True, enable_mapping=True,
+   device="cuda").process_stream_rgbd`` and ``finish()``, with the keyframe
+   gating of the JAX package's RGB-D golden run (1.0 m, 0.4 rad). It must
+   accept a loop edge, fire a global optimisation before ``finish``,
+   finish with an ATE RMSE under 0.8 m and build a map with no voxel of an
+   excluded class. Also times one ``track_frame_rgbd`` step.
+6. ``slice``: renders 10 KITTI-size (376x1248) stereo frames of a
    fixed-seed synthetic street on the card and runs them through
    ``SlamSystem(cfg, enable_mapping=True, device="cuda").process_stream``
    with the default configuration (80 disparities, 11x11 window, bfloat16
@@ -31,7 +61,7 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    must have a VO success, the trajectory's ATE RMSE against the rendered
    ground truth must be below 0.3 m, the results and the keyframes' SegNet
    labels must live on the card, and the map must have voxels.
-5. ``epoch``: the whole stereo SLAM at KITTI size with the default
+7. ``epoch``: the whole stereo SLAM at KITTI size with the default
    configuration: 250 frames of a circular course (radius 15 m, 1.25 laps,
    0.47 m a frame) through a fixed-seed loop world with 6 movers, with the
    renderer's ground-truth labels as each frame's fourth item, a
@@ -47,18 +77,18 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    bicyclist), whose PCD reads back with POINTS equal to the voxel count.
    Prints frames/s, the stage timer, the counts, the map, and the
    device-busy share of one profiled keyframe epoch.
-6. ``segnet``: times the full-width SegNet alone on a (1, 384, 480, 3)
+8. ``segnet``: times the full-width SegNet alone on a (1, 384, 480, 3)
    input and ``SlamSystem._run_segnet`` on one KITTI-size keyframe (CUDA
    events, median of 15), with its launches per call and its rate against
    the card's bfloat16 peak.
-7. ``stages``: times each stage of one frontend step on the card, then
+9. ``stages``: times each stage of one frontend step on the card, then
    profiles one step: device-busy time, idle share, launches, top kernels.
-8. ``candidates``: card time and launches of the keyframe epoch's
+10. ``candidates``: card time and launches of the keyframe epoch's
    kernel candidates (Hamming matching, batched PnP, the vocabulary
    descent, the LM + PCG solve, the keyframe cloud) at the epoch's shapes,
    per call and per keyframe, beside one PyTorch call computing the same
    function where there is one.
-9. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
+11. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
    with fixed samples, ORB, the PnP gate, the pose-graph solve, the
    quantized keyframe cloud, SegNet's pooling with planted ties, one
    bfloat16 SegNet layer and SegNet's labels of one frame on the card and
@@ -77,11 +107,15 @@ import copy
 import ctypes
 import dataclasses
 import json
+import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -90,12 +124,18 @@ import torch
 from semantic_slam_mapping_torch import pipeline
 from semantic_slam_mapping_torch.backend import looper, pnp
 from semantic_slam_mapping_torch.backend import pose_graph as pg
-from semantic_slam_mapping_torch.config import SegNetConfig, SlamConfig
+from semantic_slam_mapping_torch.config import (CameraConfig, SegNetConfig,
+                                                SlamConfig)
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
+from semantic_slam_mapping_torch.frontend import rgbd_tracker
 from semantic_slam_mapping_torch.frontend import uvdisparity as uvd
+from semantic_slam_mapping_torch.geometry import se3_np
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics
-from semantic_slam_mapping_torch.io import synthetic
+from semantic_slam_mapping_torch.io import png, synthetic
+from semantic_slam_mapping_torch.io.gt_pose import (read_kitti_poses,
+                                                    write_kitti_poses)
+from semantic_slam_mapping_torch.io.kitti import KittiReader
 from semantic_slam_mapping_torch.mapping import native, semantics
 from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import matching, orb, sgbm
@@ -104,7 +144,27 @@ from semantic_slam_mapping_torch.pipeline import SlamSystem
 from semantic_slam_mapping_torch.utils.metrics import ate_rmse
 
 T0 = time.time()
+ROOT = Path(__file__).resolve().parent
 H, W = 376, 1248
+# KITTI 00-02's image width: the command line's frames
+W_KITTI = 1241
+# the cli phase: 30 frames of the street; the TUM directory at 480x640
+N_CLI = 30
+TUM_HW = (480, 640)
+TUM_FR1 = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3)
+# the cli phase's TUM directory: the rgbd course scaled to a room (the
+# images do not change with the scale, every depth and translation is 0.2
+# times as large: a loop of radius 2 m, most depths a few metres), its
+# depth stored as TUM stores it, 5000 a metre, and no reading past 10 m, a
+# Kinect-class sensor's reach. Unscaled, most of the course lies past any
+# such range and both packages' trackers lose it (PERF.md, section 6)
+TUM_DEPTH_SCALE = 5000.0
+TUM_ROOM_SCALE = 0.2
+TUM_MAX_RANGE_M = 10.0
+PNP_ATE_BOUND_M = 1.0
+# the rgbd phase: 200 frames of the loop world at radius 10 m
+N_RGBD = 200
+RGBD_RADIUS_M = 10.0
 N_FRAMES = 10
 ATE_BOUND_M = 0.3
 # the epoch phase: a 250-frame circular course, 0.47 m a frame
@@ -253,6 +313,30 @@ def sgm_variant_ms(vol: torch.Tensor, p1: float, p2: float) -> dict:
     return res
 
 
+def sgm_times(vol: torch.Tensor, p1: float, p2: float) -> dict:
+    """Milliseconds of the kernel, of each of its launches and of its plain
+    version on a bf16 volume, and the bound: the contract's bytes (the
+    volume read once, the aggregate in its dtype written once) over the
+    card's memory rate, or its float32 operations over the f32 peak."""
+    D = vol.shape[-1]
+    vsum, out = torch.empty_like(vol), torch.empty_like(vol)
+    n_bytes = 2 * vol.numel() * vol.element_size()
+    n_ops = vol.numel() * SGM_OPS_PER_ELEMENT
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    return dict(
+        shape=list(vol.shape),
+        ms=cuda_ms(lambda: sgm_cuda.sgm_aggregate4(vol, p1, p2), batch=10),
+        vertical_ms=cuda_ms(lambda: sgm_cuda.sgm_pass(
+            vol, vsum, D, p1, p2, horizontal=False), batch=10),
+        horizontal_ms=cuda_ms(lambda: sgm_cuda.sgm_pass(
+            vol, out, D, p1, p2, horizontal=True, addend=vsum), batch=10),
+        plain_ms=cuda_ms(lambda: sgm_cuda.sgm_aggregate4_plain(vol, p1, p2),
+                         warmup=1, reps=5),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=n_bytes, ops=n_ops)
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = SlamConfig().sgbm
@@ -267,36 +351,419 @@ def phase_kernels() -> dict:
         small = torch.rand(shape, generator=gen, device="cuda") * 200.0
         for dt in (torch.float32, torch.bfloat16):
             errs.append(check_sgm(small.to(dt), 7.0, 50.0, "small"))
-    base = torch.rand((H, W, D), generator=gen, device="cuda") * 200.0
-    for dt in (torch.float32, torch.bfloat16):
-        errs.append(check_sgm(base.to(dt).contiguous(), p1, p2, "main"))
+    # the command line's KITTI frames (odd-length rows), an odd height,
+    # and the synthetic phases' width
+    vols = {}
+    for label, shape in (("kitti 376x1241", (H, W_KITTI, D)),
+                         ("odd height 375x1241", (H - 1, W_KITTI, D)),
+                         ("synthetic 376x1248", (H, W, D))):
+        base = torch.rand(shape, generator=gen, device="cuda") * 200.0
+        for dt in (torch.float32, torch.bfloat16):
+            errs.append(check_sgm(base.to(dt).contiguous(), p1, p2, label))
+        vols[label] = base.to(torch.bfloat16).contiguous()
+        del base
 
-    # times on the main path's input: the bf16 volume, each launch alone
-    # and the two together
-    vol = base.to(torch.bfloat16).contiguous()
-    vsum, out = torch.empty_like(vol), torch.empty_like(vol)
-    vertical_ms = cuda_ms(lambda: sgm_cuda.sgm_pass(
-        vol, vsum, D, p1, p2, horizontal=False), batch=10)
-    horizontal_ms = cuda_ms(lambda: sgm_cuda.sgm_pass(
-        vol, out, D, p1, p2, horizontal=True, addend=vsum), batch=10)
-    variants = sgm_variant_ms(vol, p1, p2)
-    ms = cuda_ms(lambda: sgm_cuda.sgm_aggregate4(vol, p1, p2), batch=10)
-    plain_ms = cuda_ms(lambda: sgm_cuda.sgm_aggregate4_plain(vol, p1, p2),
-                       warmup=1, reps=5)
-    # the contract's bytes: the volume read once, the aggregate (in the
-    # volume's dtype) written once
-    n_bytes = 2 * vol.numel() * vol.element_size()
-    n_ops = vol.numel() * SGM_OPS_PER_ELEMENT
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
-    row.update(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    emit("kernels", kernel="sgm_aggregate4", dtype="bfloat16",
-         shape=[H, W, D], ms=ms, vertical_ms=vertical_ms,
-         horizontal_ms=horizontal_ms, variants_ms=variants, plain_ms=plain_ms,
-         bound_ms=row["bound_ms"], bound_by=row["bound_by"], bytes=n_bytes,
-         ops=n_ops, library_ms=None)
+    # times on the main path's input (the command line's bf16 volume at
+    # 376x1241), and at the synthetic phases' 1248
+    kitti = sgm_times(vols["kitti 376x1241"], p1, p2)
+    synth = sgm_times(vols["synthetic 376x1248"], p1, p2)
+    variants = sgm_variant_ms(vols["kitti 376x1241"], p1, p2)
+    row.update(max_abs_err=max(errs), ms=kitti["ms"],
+               plain_ms=kitti["plain_ms"], bound_ms=kitti["bound_ms"],
+               bound_by=kitti["bound_by"], shape=kitti["shape"],
+               ms_w1248=synth["ms"], bound_ms_w1248=synth["bound_ms"])
+    for t in (kitti, synth):
+        emit("kernels", kernel="sgm_aggregate4", dtype="bfloat16", **t,
+             library_ms=None)
+    emit("kernels", kernel="sgm_aggregate4", shape=kitti["shape"],
+         variants_ms=variants)
     return row
+
+
+# Runs the port's command line as __main__ (what ``python -m`` does) with
+# the SGM kernel's launch count zeroed first, and prints the count on
+# stderr when the process exits.
+CLI_BOOT = """\
+import atexit, runpy, sys
+from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
+sgm_cuda.sgm_aggregate4.launches = 0
+atexit.register(lambda: print("sgm_aggregate4 launches",
+                              sgm_cuda.sgm_aggregate4.launches,
+                              file=sys.stderr, flush=True))
+sys.argv = ["semantic_slam_mapping_torch.cli"] + sys.argv[1:]
+runpy.run_module("semantic_slam_mapping_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def run_cli(args, device: str, timeout: int = 600) -> dict:
+    """One command of the port's CLI in a subprocess: its exit code,
+    seconds, output, the last stdout line as JSON (when it is one) and the
+    SGM launches."""
+    extra = [] if device == "cuda" else ["--device", device]
+    t = time.time()
+    res = subprocess.run([sys.executable, "-c", CLI_BOOT, *args, *extra],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    out = dict(command=args[0], rc=res.returncode,
+               seconds=time.time() - t, stdout=res.stdout,
+               stderr=res.stderr)
+    m = re.search(r"^sgm_aggregate4 launches (\d+)$", res.stderr, re.M)
+    out["sgm_launches"] = int(m.group(1)) if m else None
+    lines = res.stdout.strip().splitlines()
+    try:
+        out["report"] = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        out["report"] = None
+    if res.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    return out
+
+
+def frame_ms(stderr: str):
+    """Mean milliseconds of the "frame" stage in a StageTimer report."""
+    m = re.search(r"^frame\s+\d+ calls\s+([\d.]+) ms/call", stderr, re.M)
+    return float(m.group(1)) if m else None
+
+
+def write_kitti_dir(root: Path, cfg: SlamConfig, n_frames: int, height: int,
+                    width: int, device: str):
+    """A KITTI-layout directory of the slice's street: image_0/1/2 and the
+    renderer's labels as PNG with each row's filter chosen as libpng
+    chooses it by default, poses.txt and parameters.txt. Returns the
+    seconds spent writing PNGs a frame."""
+    K = Intrinsics.from_config(cfg.camera)
+    gen = torch.Generator(device=device).manual_seed(0)
+    world = synthetic.make_world(gen, n_boxes=14, with_moving_box=True,
+                                 device=device)
+    poses = synthetic.straight_trajectory(n_frames, speed=0.8, device=device)
+    for sub in ("image_0", "image_1", "image_2", "labels"):
+        (root / sub).mkdir(parents=True)
+    write_s = 0.0
+    for start in range(0, n_frames, 10):
+        seq = synthetic.render_sequence(K, world, poses[start:start + 10],
+                                        height, width, start_index=start)
+        u8 = {k: (seq[k].clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu()
+              .numpy() for k in ("left", "right")}
+        labels = seq["semantic"].to(torch.uint8).cpu().numpy()
+        t = time.time()
+        for i in range(len(labels)):
+            name = f"{start + i:06d}.png"
+            for sub, img in (("image_0", u8["left"][i]),
+                             ("image_1", u8["right"][i]),
+                             ("image_2", np.repeat(u8["left"][i][..., None],
+                                                   3, -1)),
+                             ("labels", labels[i])):
+                png.write_png(root / sub / name, img, row_filter=None)
+        write_s += time.time() - t
+    write_kitti_poses(root / "poses.txt", poses.cpu().numpy())
+    cam = cfg.camera
+    (root / "parameters.txt").write_text(
+        "# KITTI odometry 00-02\n"
+        f"camera.fx={cam.fx}\ncamera.fy={cam.fy}\ncamera.cx={cam.cx}\n"
+        f"camera.cy={cam.cy}\ncamera.baseline={cam.baseline}\n"
+        f"start_index=0\nend_index={n_frames}\n")
+    return write_s / n_frames
+
+
+def tum_config(height: int, width: int) -> SlamConfig:
+    """TUM fr1 intrinsics (scaled to the image size) and the keyframe
+    gating of the JAX package's RGB-D golden run."""
+    s = width / TUM_HW[1]
+    cfg = SlamConfig()
+    cam = CameraConfig(**{k: v * s for k, v in TUM_FR1.items()},
+                       baseline=cfg.camera.baseline, scale=TUM_DEPTH_SCALE)
+    return cfg.replace(camera=cam, pose_graph=dataclasses.replace(
+        cfg.pose_graph, keyframe_min_translation=1.0,
+        keyframe_min_rotation=0.4))
+
+
+def render_rgbd_loop(cfg: SlamConfig, n_frames: int, height: int,
+                     width: int, device: str, n_total: int = N_RGBD):
+    """The first ``n_frames`` of the rgbd phase's course (``n_total``
+    frames, 1.25 laps of the radius-10 loop world): host (gray, depth,
+    int8 labels) frames and the ground-truth poses."""
+    K = Intrinsics.from_config(cfg.camera)
+    gen = torch.Generator(device=device).manual_seed(7)
+    world = synthetic.make_loop_world(gen, n_boxes=48, radius=RGBD_RADIUS_M,
+                                      n_moving=6, device=device)
+    poses = synthetic.loop_trajectory(n_total, radius=RGBD_RADIUS_M,
+                                      laps=LOOP_LAPS, pitch_amp=0.006,
+                                      device=device)[:n_frames]
+    frames = []
+    for start in range(0, n_frames, 25):
+        seq = synthetic.render_sequence(K, world, poses[start:start + 25],
+                                        height, width, start_index=start)
+        frames += list(zip(seq["left"].cpu().numpy(),
+                           seq["depth"].cpu().numpy(),
+                           seq["semantic"].to(torch.int8).cpu().numpy()))
+    return frames, poses.cpu().numpy().astype(np.float64)
+
+
+def depth_reading(depth: np.ndarray, depth_scale: float,
+                  max_range_m: float | None = None) -> np.ndarray:
+    """A depth map as a 16-bit sensor stores it: metres times
+    ``depth_scale``, 0 (no reading) past ``max_range_m`` or past 16 bits."""
+    d = np.round(depth.astype(np.float64) * depth_scale)
+    ok = (d > 0) & (d < 65536)
+    if max_range_m is not None:
+        ok &= depth <= max_range_m
+    return np.where(ok, d, 0).astype(np.uint16)
+
+
+def room_course(frames, gt: np.ndarray, s: float = TUM_ROOM_SCALE):
+    """A course of (gray, depth, labels) frames and poses scaled by ``s``:
+    the same images, every depth and translation ``s`` times as large."""
+    gt = gt.copy()
+    gt[:, :3, 3] *= s
+    return [(g, d * np.float32(s), lbl) for g, d, lbl in frames], gt
+
+
+def write_tum_dir(root: Path, frames, gt: np.ndarray,
+                  depth_scale: float = TUM_DEPTH_SCALE,
+                  max_range_m: float | None = None) -> None:
+    """A TUM-layout directory: rgb/ and 16-bit depth/ PNGs
+    (``depth_reading``; each row's filter chosen as libpng chooses it),
+    associate.txt and groundtruth.txt."""
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    assoc, lines = [], []
+    for i, (gray, depth, _) in enumerate(frames):
+        t = 1305031102.0 + i / 30.0
+        g = (np.clip(gray, 0, 1) * 255 + 0.5).astype(np.uint8)
+        png.write_png(root / "rgb" / f"{t:.6f}.png",
+                      np.repeat(g[..., None], 3, -1), row_filter=None)
+        png.write_png(root / "depth" / f"{t:.6f}.png",
+                      depth_reading(depth, depth_scale, max_range_m),
+                      row_filter=None)
+        assoc.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
+        q = se3_np.rotation_to_quaternion(gt[i][:3, :3])
+        x, y, z = gt[i][:3, 3]
+        lines.append(f"{t:.6f} {x} {y} {z} {q[1]} {q[2]} {q[3]} {q[0]}")
+    (root / "associate.txt").write_text("\n".join(assoc) + "\n")
+    (root / "groundtruth.txt").write_text(
+        "# timestamp tx ty tz qx qy qz qw\n" + "\n".join(lines) + "\n")
+
+
+def png_filter_types(path: Path) -> np.ndarray:
+    """The row filter type of each row of a PNG written by ``write_png``
+    (one IDAT chunk, after IHDR and any tEXt chunks)."""
+    data = path.read_bytes()
+    pos, rows = 8, None
+    while rows is None:
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            height = struct.unpack(">I", data[pos + 12:pos + 16])[0]
+        elif kind == b"IDAT":
+            raw = np.frombuffer(zlib.decompress(data[pos + 8:pos + 8 + n]),
+                                np.uint8)
+            rows = raw.reshape(height, -1)
+        pos += 12 + n
+    return rows[:, 0]
+
+
+def png_decode_ms(frame: np.ndarray, tmp: Path) -> dict:
+    """Host milliseconds to decode one frame written with filter 0 on
+    every row, with Paeth on every row, and with each row's filter chosen
+    as libpng chooses it (the directory's files), median of 5, and the
+    share of each filter type in the last."""
+    out = {}
+    for name, f in (("none", 0), ("paeth", 4), ("adaptive", None)):
+        path = tmp / f"decode_{name}.png"
+        png.write_png(path, frame, row_filter=f)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            img = png.read_png(path, "L")
+            times.append((time.perf_counter() - t) * 1e3)
+        if not np.array_equal(img, frame):
+            raise AssertionError(f"PNG round trip ({name}) differs")
+        out[f"{name}_ms"] = statistics.median(times)
+    out.update(adaptive_filter_share=np.bincount(
+        png_filter_types(path), minlength=5).tolist(),
+        shape=list(frame.shape), host_cpus=os.cpu_count())
+    return out
+
+
+def phase_cli(card: str, device: str = "cuda", height: int = H,
+              width: int = W_KITTI, n_frames: int = N_CLI,
+              tum_hw=TUM_HW) -> dict:
+    """The command line on a KITTI-layout and a TUM-layout directory."""
+    # KITTI 00-02's camera, scaled for a rehearsal at another size
+    cfg = SlamConfig() if width == W_KITTI else loop_camera(height, width)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        kitti = tmp / "kitti"
+        write_ms = write_kitti_dir(kitti, cfg, n_frames, height, width,
+                                   device) * 1e3
+        reader = KittiReader(str(kitti), semantic_dir="labels")
+        t = time.time()
+        for i in range(5):
+            reader.get(i)
+        read_ms = (time.time() - t) / 5 * 1e3
+        decode = png_decode_ms(png.read_png(kitti / "image_0" / "000000.png"),
+                               tmp)
+        emit("cli", step="kitti directory", frames=n_frames,
+             shape=[height, width], png_write_ms_per_frame=write_ms,
+             reader_ms_per_frame=read_ms, png_files_per_frame=4,
+             png_decode_ms=decode)
+
+        common = ["--data", str(kitti), "--gt", str(kitti / "poses.txt"),
+                  "--parameters", str(kitti / "parameters.txt")]
+        vocab = run_cli(["make-vocab", "--data", str(kitti), "--out",
+                         str(tmp / "vocab"), "--stride", "3",
+                         "--branching", "10", "--depth", "3"], device)
+        slam = run_cli(["slam", *common, "--vocab",
+                        str(tmp / "vocab" / "vocab.npz"),
+                        "--semantic-dir", "labels", "--out",
+                        str(tmp / "slam")], device)
+        pnp_run = run_cli(["pnp", *common, "--out", str(tmp / "pnp")],
+                          device)
+        fps = re.search(r"^# (\d+) frames in ([\d.]+)s = ([\d.]+) fps$",
+                        slam["stderr"], re.M)
+        traj = read_kitti_poses(tmp / "slam" / "trajectory.txt")
+        g2o = pipeline.load_g2o(str(tmp / "slam" / "traj.g2o"))
+        pnp_traj = read_kitti_poses(tmp / "pnp" / "trajectory.txt")
+        launches["cli slam"] = slam["sgm_launches"]
+        launches["cli pnp"] = pnp_run["sgm_launches"]
+
+        tum_cfg = tum_config(*tum_hw)
+        frames, gt = room_course(*render_rgbd_loop(tum_cfg, n_frames,
+                                                   *tum_hw, device))
+        cam = tum_cfg.camera
+        tum = tmp / "tum"
+        write_tum_dir(tum, frames, gt, TUM_DEPTH_SCALE, TUM_MAX_RANGE_M)
+        # the command's own depth scale, TUM's 5000 a metre
+        rgbd = run_cli([
+            "rgbd", "--data", str(tum), "--gt", str(tum / "groundtruth.txt"),
+            "--out", str(tmp / "rgbd"), "--fx", str(cam.fx), "--fy",
+            str(cam.fy), "--cx", str(cam.cx), "--cy", str(cam.cy)], device)
+        rgbd_traj = read_kitti_poses(tmp / "rgbd" / "trajectory.txt")
+
+    fields = dict(
+        frames=n_frames, shape=[height, width], tum_shape=list(tum_hw),
+        seconds={r["command"]: r["seconds"] for r in (vocab, slam, pnp_run,
+                                                      rgbd)},
+        vocabulary=vocab["stdout"].strip(),
+        slam_frames_per_s=float(fps.group(3)) if fps else None,
+        slam_report=slam["report"], slam_keyframes=len(g2o["vertex_ids"]),
+        slam_edges=len(g2o["edge_i"]), pnp_report=pnp_run["report"],
+        pnp_frame_ms=frame_ms(pnp_run["stderr"]),
+        rgbd_depth_scale=TUM_DEPTH_SCALE, rgbd_room_scale=TUM_ROOM_SCALE,
+        rgbd_max_range_m=TUM_MAX_RANGE_M, rgbd_report=rgbd["report"],
+        rgbd_ate_bound_m=ATE_BOUND_M * TUM_ROOM_SCALE,
+        rgbd_frame_ms=frame_ms(rgbd["stderr"]),
+        launches=launches,
+        png_decode_ms=decode, reader_ms_per_frame=read_ms, card=card)
+    emit("cli", **fields)
+
+    tracked = n_frames - 1
+    checks = [
+        (fps is not None and int(fps.group(1)) == n_frames,
+         "slam printed no frames/s line for every frame"),
+        (traj.shape == (n_frames, 4, 4) and np.isfinite(traj).all(),
+         f"slam trajectory of shape {traj.shape}"),
+        (len(g2o["vertex_ids"]) >= 1, "traj.g2o holds no vertex"),
+        (slam["report"] and slam["report"]["frames"] == n_frames
+         and slam["report"]["ate_rmse_m"] < ATE_BOUND_M,
+         f"slam ATE line {slam['report']}, bound {ATE_BOUND_M} m"),
+        (pnp_traj.shape == (n_frames, 4, 4) and np.isfinite(pnp_traj).all(),
+         f"pnp trajectory of shape {pnp_traj.shape}"),
+        (pnp_run["report"] and pnp_run["report"]["frames"] == n_frames
+         and pnp_run["report"]["ate_rmse_m"] < PNP_ATE_BOUND_M,
+         f"pnp ATE line {pnp_run['report']}, bound {PNP_ATE_BOUND_M} m"),
+        (rgbd_traj.shape == (n_frames, 4, 4)
+         and np.isfinite(rgbd_traj).all(),
+         f"rgbd trajectory of shape {rgbd_traj.shape}"),
+        (rgbd["report"] and rgbd["report"]["frames"] == n_frames
+         and rgbd["report"]["ate_rmse_m"] < ATE_BOUND_M * TUM_ROOM_SCALE,
+         f"rgbd ATE line {rgbd['report']}, bound "
+         f"{ATE_BOUND_M * TUM_ROOM_SCALE} m (the course's scale)"),
+        (frame_ms(rgbd["stderr"]) is not None,
+         "rgbd printed no frame timing"),
+    ]
+    if device == "cuda":
+        checks += [
+            (launches["cli slam"] == 2 * tracked,
+             f"slam launched SGM {launches['cli slam']} times for "
+             f"{tracked} tracked frames, expected 2 each"),
+            (launches["cli pnp"] == 2 * n_frames,
+             f"pnp launched SGM {launches['cli pnp']} times for "
+             f"{n_frames} frames, expected 2 each")]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"cli: {msg}")
+    return fields
+
+
+def phase_rgbd(card: str, device: str = "cuda", height: int = TUM_HW[0],
+               width: int = TUM_HW[1], n_frames: int = N_RGBD) -> dict:
+    """The whole RGB-D system on the loop world."""
+    cfg = tum_config(height, width)
+    t = time.time()
+    frames, gt = render_rgbd_loop(cfg, n_frames, height, width, device,
+                                  n_total=n_frames)
+    emit("rgbd", step="rendered", frames=n_frames, shape=[height, width],
+         seconds=round(time.time() - t, 2))
+    vocab = loop_vocabulary(cfg, frames, device)
+    system = SlamSystem(cfg, vocab=vocab, rgbd=True, enable_mapping=True,
+                        device=device)
+    sgm_cuda.sgm_aggregate4.launches = 0
+    t = time.time()
+    system.process_stream_rgbd((g, d, None, lbl) for g, d, lbl in frames)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    globals_before_finish = system.n_global_optimizations
+    traj = system.finish()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.time() - t
+    sgm_launches = sgm_cuda.sgm_aggregate4.launches
+    ate = ate_rmse(traj, gt)
+    _, _, lbl = system.map.as_arrays()
+    excluded = int(np.isin(lbl, semantics.MAP_EXCLUDED_CLASSES).sum())
+
+    step = {}
+    if device == "cuda":
+        K = Intrinsics.from_config(cfg.camera)
+        state = rgbd_tracker.RgbdTrackerState.initial(
+            cfg.orb.n_features, cfg.tracker.ref_frames, device)
+        g0, d0 = (torch.from_numpy(x).to(device) for x in frames[0][:2])
+        g1, d1 = (torch.from_numpy(x).to(device) for x in frames[1][:2])
+        state, _ = rgbd_tracker.track_frame_rgbd(state, g0, d0, K, cfg)
+
+        def one():
+            return rgbd_tracker.track_frame_rgbd(state, g1, d1, K, cfg)
+        step = dict(track_frame_rgbd_ms=cuda_ms(one, warmup=2, reps=10),
+                    track_frame_rgbd_launches=device_launches(one))
+    fields = dict(
+        frames=n_frames, shape=[height, width], seconds=seconds,
+        frames_per_s=n_frames / seconds, keyframes=len(system.keyframes),
+        edges=system.n_edges, loop_edges=system.n_loop_edges,
+        loop_edge_inliers=system.loop_edge_inliers,
+        global_optimizations=system.n_global_optimizations,
+        global_optimizations_before_finish=globals_before_finish,
+        local_optimizations=system.n_local_optimizations,
+        recoveries=system.n_recoveries, ate_rmse_m=ate,
+        ate_bound_m=EPOCH_ATE_BOUND_M, map_voxels=len(system.map),
+        map_label_counts=np.bincount(lbl, minlength=12).tolist(),
+        excluded_class_voxels=excluded, sgm_launches=sgm_launches,
+        timer={k: {"calls": v["calls"], "mean_ms": v["mean_ms"]}
+               for k, v in system.timer.summary().items()},
+        **step, card=card)
+    emit("rgbd", **fields)
+    if system.n_loop_edges < 1:
+        raise AssertionError("rgbd: no loop edge was accepted")
+    if globals_before_finish < 1:
+        raise AssertionError("rgbd: no global optimisation before finish()")
+    if not np.all(np.isfinite(traj)) or not ate < EPOCH_ATE_BOUND_M:
+        raise AssertionError(f"rgbd: ATE {ate} m >= {EPOCH_ATE_BOUND_M} m")
+    if not len(system.map) or excluded:
+        raise AssertionError(f"rgbd: map of {len(system.map)} voxels, "
+                             f"{excluded} of an excluded class")
+    return fields
 
 
 def render_frames(cfg: SlamConfig):
@@ -1066,13 +1533,21 @@ def main() -> int:
     info = phase_device()
     phase_build()
     row = phase_kernels()
-    _, frames, slice_system = phase_slice(info["card"])
+    cli = phase_cli(info["card"])
+    rgbd = phase_rgbd(info["card"])
+    slice_launches, frames, slice_system = phase_slice(info["card"])
     epoch = phase_epoch(info["card"])
     phase_segnet(slice_system, frames, info["card"])
     phase_stages(frames)
     phase_candidates(epoch)
     phase_parity(frames, epoch["system"])
-    row["launches"] = epoch["launches"][row["name"]]
+    # the main path is the command line's slam; each path's count was
+    # zeroed just before it and read just after
+    row["launches"] = cli["launches"]["cli slam"]
+    row["launches_by_path"] = {
+        **cli["launches"], "rgbd": rgbd["sgm_launches"],
+        "slice": slice_launches[row["name"]],
+        "epoch": epoch["launches"][row["name"]]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)

@@ -1,9 +1,12 @@
-"""Configuration of the stereo SLAM system, as plain dataclasses.
+"""Configuration of the SLAM system, as plain dataclasses.
 
 A copy of the sections of ``semantic_slam_mapping_tpu/config.py`` that the
-frontend, the keyframe epoch, SegNet and the map read, with the same field names and defaults, so a JAX config
-converts one-to-one (``utils.convert.config_from_dict``). The port keeps
-its own copy: it imports nothing of the JAX package.
+dataset readers, the frontend, the keyframe epoch, SegNet and the map
+read, with the same field names and defaults, so a JAX config converts
+one-to-one (``utils.convert.config_from_dict``), and of its loader of the
+reference's ``key=value`` ``parameters.txt`` (:func:`load_parameters_file`;
+an unknown key warns on stderr). The port keeps its own copy: it imports
+nothing of the JAX package.
 
 The TPU knobs of :class:`SgbmConfig` (``use_pallas``, ``scan_block``,
 ``scan_halo``) are kept for that conversion and ignored here: the port
@@ -14,8 +17,10 @@ kernel runs on the TPU.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -37,6 +42,21 @@ class CameraConfig:
     @property
     def bf(self) -> float:
         return self.fx * self.baseline
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Dataset paths and frame range (the reference's parameters.txt)."""
+
+    data_source: str = ""
+    gtpose_source: str = ""
+    rgb_dir: str = "image_2/"
+    rgb_extension: str = ".png"
+    depth_dir: str = "stereo/"
+    depth_extension: str = ".png"
+    start_index: int = 0
+    end_index: int = 100
+    dataset_type: str = "kitti"  # "kitti" | "tum" | "synthetic"
 
 
 @dataclass(frozen=True)
@@ -247,10 +267,10 @@ class MapperConfig:
 
 @dataclass(frozen=True)
 class SlamConfig:
-    """The stereo frontend's, keyframe epoch's, SegNet's and map's part of
-    the JAX package's ``SlamConfig``."""
+    """The JAX package's ``SlamConfig`` but its multi-device section."""
 
     camera: CameraConfig = field(default_factory=CameraConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
     sgbm: SgbmConfig = field(default_factory=SgbmConfig)
     orb: OrbConfig = field(default_factory=OrbConfig)
     gftt: GfttConfig = field(default_factory=GfttConfig)
@@ -271,3 +291,95 @@ class SlamConfig:
 
 def default_config() -> SlamConfig:
     return SlamConfig()
+
+
+# ---------------------------------------------------------------------------
+# parameters.txt
+# ---------------------------------------------------------------------------
+
+# reference parameters.txt key -> (section, field, type)
+_KEY_MAP: Dict[str, Tuple[str, str, type]] = {
+    "start_index": ("dataset", "start_index", int),
+    "end_index": ("dataset", "end_index", int),
+    "data_source": ("dataset", "data_source", str),
+    "gtpose_source": ("dataset", "gtpose_source", str),
+    "rgb_dir": ("dataset", "rgb_dir", str),
+    "rgb_extension": ("dataset", "rgb_extension", str),
+    "depth_dir": ("dataset", "depth_dir", str),
+    "depth_extension": ("dataset", "depth_extension", str),
+    "camera.fx": ("camera", "fx", float),
+    "camera.fy": ("camera", "fy", float),
+    "camera.cx": ("camera", "cx", float),
+    "camera.cy": ("camera", "cy", float),
+    "camera.baseline": ("camera", "baseline", float),
+    "camera.scale": ("camera", "scale", float),
+    "camera.roix": ("camera", "roix", float),
+    "camera.roiy": ("camera", "roiy", float),
+    "camera.roiz": ("camera", "roiz", float),
+    "orb_features": ("orb", "n_features", int),
+    "orb_scale": ("orb", "scale_factor", float),
+    "orb_levels": ("orb", "n_levels", int),
+    "orb_iniThFAST": ("orb", "ini_th_fast", int),
+    "orb_minThFAST": ("orb", "min_th_fast", int),
+    "knn_match_ratio": ("orb", "knn_match_ratio", float),
+    "pnp_min_inliers": ("pnp", "min_inliers", int),
+    "pnp_min_matches": ("pnp", "min_matches", int),
+    "inlier_threshold": ("tracker", "inlier_threshold", float),
+    "tracker_max_lost_frame": ("tracker", "max_lost_frames", int),
+    "tracker_ref_frames": ("tracker", "ref_frames", int),
+    "nearby_keyframes": ("pose_graph", "nearby_keyframes", int),
+    "keyframe_min_translation": ("pose_graph", "keyframe_min_translation",
+                                 float),
+    "keyframe_min_rotation": ("pose_graph", "keyframe_min_rotation", float),
+    "loop_accumulate_error": ("pose_graph", "loop_accumulate_error", float),
+    "local_accumulate_error": ("pose_graph", "local_accumulate_error",
+                               float),
+    "looper_vocab_file": ("looper", "vocab_file", str),
+    "looper_min_sim_score": ("looper", "min_sim_score", float),
+    "looper_min_interval": ("looper", "min_interval", int),
+    "mapper_resolution": ("mapper", "resolution", float),
+    "mapper_max_distance": ("mapper", "max_distance", float),
+    "motion_area_thres": ("mapper", "motion_area_threshold", int),
+    "motion_overlay_portion_thres": ("mapper",
+                                     "motion_overlay_portion_threshold",
+                                     float),
+}
+
+# camera.d0 .. camera.d4: the entries of the distortion tuple
+_DIST_KEYS = {f"camera.d{i}": i for i in range(5)}
+
+
+def parse_parameters_text(text: str) -> Dict[str, str]:
+    """``key=value`` lines, split at the first '='; blank lines, lines
+    starting with '#' and lines without '=' are skipped."""
+    out: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        key, _, value = line.partition("=")
+        out[key.strip()] = value.strip()
+    return out
+
+
+def load_parameters_file(path: str | Path,
+                         base: Optional[SlamConfig] = None) -> SlamConfig:
+    """A reference-format parameters.txt over ``base`` (the defaults)."""
+    cfg = base if base is not None else default_config()
+    raw = parse_parameters_text(Path(path).read_text())
+    sections: Dict[str, Dict[str, Any]] = {}
+    dist = list(cfg.camera.d)
+    for key, value in raw.items():
+        if key in _DIST_KEYS:
+            dist[_DIST_KEYS[key]] = float(value)
+            continue
+        if key not in _KEY_MAP:
+            print(f"[config] warning: unknown parameter '{key}'",
+                  file=sys.stderr)
+            continue
+        section, attr, typ = _KEY_MAP[key]
+        sections.setdefault(section, {})[attr] = typ(value)
+    sections.setdefault("camera", {})["d"] = tuple(dist)
+    return dataclasses.replace(cfg, **{
+        section: dataclasses.replace(getattr(cfg, section), **fields)
+        for section, fields in sections.items()})

@@ -31,6 +31,15 @@ runs, in this order:
 ``finish`` drains the deferred work, runs a forced global optimisation and
 exports every frame through its keyframe anchor.
 
+RGB-D mode (``SlamSystem(..., rgbd=True)``, fed by ``process_frame_rgbd`` or
+``process_stream_rgbd``) runs the same keyframe epoch behind the ORB + PnP
+frontend of ``frontend/rgbd_tracker.py``: a frame's depth image takes the
+place of its disparity (the keyframe stores it in the disparity slot, its
+features take their 3-D points from it, its cloud reads it as depth), no
+frame primes a pair buffer, a keyframe has no right image, there is no
+moving-object mask, and a loop candidate is verified by the reverse PnP
+alone (no quad-match re-measure without a stereo pair).
+
 Deferred results are copied to pinned host memory behind a CUDA event as
 soon as they are queued, and read at the next epoch, so edges land one
 epoch late exactly as in the JAX package. The pose graph and the keyframe
@@ -57,6 +66,7 @@ from semantic_slam_mapping_torch.config import (MapperConfig, OrbConfig,
                                                 SlamConfig)
 from semantic_slam_mapping_torch.device import resolve
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
+from semantic_slam_mapping_torch.frontend import rgbd_tracker as rt
 from semantic_slam_mapping_torch.geometry import se3_np
 from semantic_slam_mapping_torch.geometry.camera import (
     Intrinsics, disparity_to_depth, triangulate_stereo)
@@ -94,14 +104,16 @@ _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 def _kf_cloud(disp_f16: torch.Tensor, left_f16: torch.Tensor,
               color: Optional[torch.Tensor], labels: Optional[torch.Tensor],
               moving_mask: Optional[torch.Tensor], K: Intrinsics,
-              mcfg: MapperConfig):
+              mcfg: MapperConfig, depth_input: bool = False):
     """Keyframe -> compacted camera-frame voxel cloud, quantized: (int16
     positions in 1/64 m, u8 colors, int8 labels, 0-d int32 count), the
     first ``count`` rows valid. Counterpart of the JAX package's
     ``_kf_cloud_jit``: every ``cloud_stride``-th pixel, depth from the
     float16 disparity with the full-resolution intrinsics, back-projection
     with the intrinsics divided by the stride (in float32), the gray image
-    as color when there is none, label 1 where there are no labels."""
+    as color when there is none, label 1 where there are no labels.
+    ``depth_input``: the disparity slot holds a metric depth image (an
+    RGB-D keyframe), taken as it is."""
     st = max(int(mcfg.cloud_stride), 1)
     dev = disp_f16.device
     disp = disp_f16.float()
@@ -113,7 +125,7 @@ def _kf_cloud(disp_f16: torch.Tensor, left_f16: torch.Tensor,
         moving_mask = (moving_mask[::st, ::st] if moving_mask is not None
                        else None)
     # disparities are in full-resolution pixels ...
-    depth = disparity_to_depth(K, disp)
+    depth = disp if depth_input else disparity_to_depth(K, disp)
     if st > 1:
         # ... while the subsampled pixel grid projects with K / stride
         s32 = np.float32(st)
@@ -301,16 +313,20 @@ class SlamSystem:
     builds the semantic voxel map (``self.map``, the C++ map of
     ``mapping/native.py``); ``cfg.segnet.online`` labels keyframes that
     bring no labels with SegNet (``cfg.segnet.weights``, or a network drawn
-    from ``seed``)."""
+    from ``seed``). ``rgbd`` selects the RGB-D frontend, fed by
+    ``process_frame_rgbd`` and ``process_stream_rgbd``."""
 
     def __init__(self, cfg: SlamConfig,
                  vocab: Optional[lp.Vocabulary] = None, seed: int = 0,
                  enable_mapping: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", rgbd: bool = False):
         self.device = resolve(device)
         self.cfg = cfg
         self.K = Intrinsics.from_config(cfg.camera)
-        self.state = tracker.TrackerState.initial(cfg, self.device)
+        self.rgbd = rgbd
+        self.state = (rt.RgbdTrackerState.initial(
+            cfg.orb.n_features, max(1, cfg.tracker.ref_frames), self.device)
+            if rgbd else tracker.TrackerState.initial(cfg, self.device))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.vocab = vocab.to(self.device) if vocab is not None else None
@@ -435,10 +451,12 @@ class SlamSystem:
         and the keyframe gate checked."""
         with self.timer.stage("frontend"):
             pose = out.pose.detach().to("cpu", torch.float64).numpy()
+            n_moving = (out.moving_mask.sum() if out.moving_mask is not None
+                        else torch.zeros_like(out.n_inliers))
             status, success, n_matches, n_inliers, n_moving = torch.stack([
                 out.status.long(), out.vo_success.long(),
                 out.n_matches.long(), out.n_inliers.long(),
-                out.moving_mask.sum()]).tolist()
+                n_moving.long()]).tolist()
         self._processed += 1
         if self._corrections:
             for until, C, exact in self._corrections:
@@ -480,22 +498,64 @@ class SlamSystem:
         overlaps the next frames' frontends. Results equal those of
         process_frame up to the correction transport of a rewrite while
         frames are in flight."""
+        self._stream(frames, depth, self._dispatch_frame)
+
+    def _stream(self, frames, depth: int, dispatch) -> None:
+        """The pipelined loop of both stream methods: ``dispatch`` queues
+        a frame's frontend step (None for a priming frame) and the oldest
+        queued frame is post-processed once ``depth`` are in flight. An
+        RGB-D keyframe has no right image."""
         pending = deque()
         for item in frames:
-            out = self._dispatch_frame(item[0], item[1])
+            out = dispatch(item[0], item[1])
             if out is not None:
-                pending.append((out, self._prev[0], self._prev[1],
-                                item[2] if len(item) > 2 else None,
-                                item[3] if len(item) > 3 else None))
+                right = None if self.rgbd else self._prev[1]
+                pending.append((out, self._prev[0], right, *item[2:4]))
             while len(pending) > depth:
                 self._postprocess_frame(*pending.popleft())
         while pending:
             self._postprocess_frame(*pending.popleft())
 
     # ------------------------------------------------------------------
+    def _dispatch_frame_rgbd(self, gray, depth) -> tracker.FrameResult:
+        """Queue one RGB-D frontend step; reads nothing back. The result
+        comes as a FrameResult whose disparity is the depth image and
+        which has no moving mask and no quad matches."""
+        gray = self._upload_gray(gray)
+        depth = (_upload(np.asarray(depth, np.float32), self.device)
+                 if isinstance(depth, np.ndarray)
+                 else torch.as_tensor(depth).to(self.device, torch.float32))
+        self.state, out = rt.track_frame_rgbd(self.state, gray, depth,
+                                              self.K, self.cfg)
+        self._prev = (gray, depth)
+        self._last_disparity = depth
+        self._dispatched += 1
+        return tracker.FrameResult(
+            pose=out.pose, T_delta=out.T_delta, status=out.status,
+            n_matches=out.n_matches, n_inliers=out.n_inliers,
+            moving_mask=None, disparity=depth, matches=None,
+            vo_success=out.success,
+            pitch=torch.zeros((), device=self.device))
+
+    def process_frame_rgbd(self, gray, depth, color=None, semantic=None
+                           ) -> tracker.FrameResult:
+        """Feed one RGB-D frame (gray in [0, 1], metric depth) through the
+        whole system; every frame is tracked, the first too."""
+        out = self._dispatch_frame_rgbd(gray, depth)
+        self._postprocess_frame(out, self._prev[0], None, color, semantic)
+        return out
+
+    def process_stream_rgbd(self, frames, depth: int = 6) -> None:
+        """Pipelined loop over ``frames`` yielding (gray, depth[, color[,
+        semantic]]) tuples, as :meth:`process_stream`."""
+        self._stream(frames, depth, self._dispatch_frame_rgbd)
+
+    # ------------------------------------------------------------------
     def _adjust_state(self, new_pose: np.ndarray):
-        """Rewrite the tracker's pose (status OK, lost count 0)."""
-        self.state = tracker.adjust(self.state, _upload(
+        """Rewrite the tracker's pose (status OK, lost count 0); the RGB-D
+        tracker also moves its world-frame reference points."""
+        adjust = rt.adjust if self.rgbd else tracker.adjust
+        self.state = adjust(self.state, _upload(
             np.asarray(new_pose, np.float32), self.device))
 
     def _state_pose(self) -> np.ndarray:
@@ -530,7 +590,9 @@ class SlamSystem:
                 or dr > self.cfg.pose_graph.keyframe_min_rotation)
 
     def _extract_features(self, left, disparity):
-        return extract_features(left, disparity, self.K, self.cfg.orb)
+        """``disparity`` is the depth image in RGB-D mode."""
+        fn = rt.features_with_depth if self.rgbd else extract_features
+        return fn(left, disparity, self.K, self.cfg.orb)
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, out, pose, left, right, color=None,
@@ -629,7 +691,8 @@ class SlamSystem:
             pose=np.asarray(pose, np.float32),
             bow_dev=(bow.idx, bow.w) if bow is not None else None,
             feats_dev=(feats.xy, feats.desc, xyz, feat_valid),
-            left_dev=left.half(), right_dev=right.half(),
+            left_dev=left.half(),
+            right_dev=right.half() if right is not None else None,
             disparity_dev=out.disparity.half(),
             color=np.asarray(color) if color is not None else None,
             semantic_host=semantic.astype(np.int8) if on_host else None,
@@ -706,7 +769,7 @@ class SlamSystem:
             ref_feats = [r.feats_on(dev) for r in pick]
             xy_r, desc_r, xyz_r, val_r = (torch.stack(x)
                                           for x in zip(*ref_feats))
-            if is_loop:
+            if is_loop and not self.rgbd:
                 left_r = [self._dev_img_tracked(r, "left").float()
                           for r in refs]
                 right_r = [self._dev_img_tracked(r, "right").float()
@@ -725,7 +788,19 @@ class SlamSystem:
         # seeded by the image flow the PnP solution implies for a mid-depth
         # principal-ray point (loop pairs revisit from an offset lane)
         staged = [infos.success, infos.n_inliers, infos.T]
-        if is_loop:
+        if is_loop and self.rgbd:
+            with self.timer.stage("edges/revpnp"):
+                # no stereo pair: the reverse PnP (kf's 3D against each
+                # candidate's 2D) is the only check, started from the
+                # graph's relative pose
+                T_init_rev = _upload(np.stack(
+                    [(np.linalg.inv(r.pose) @ kf.pose).astype(np.float32)
+                     for r in pick]), dev)
+                res_rev = pnp_mod.solve_pnp_lazy(
+                    kf_desc, kf_xyz, kf_val, desc_r, xy_r, val_r, self.K,
+                    T_init_rev, cfg.pnp, cfg.orb.knn_match_ratio)
+            staged += [res_rev.success, res_rev.T]
+        elif is_loop:
             with self.timer.stage("edges/viso"):
                 kf_left = self._dev_img_tracked(kf, "left").float()
                 kf_right = self._dev_img_tracked(kf, "right").float()
@@ -770,7 +845,12 @@ class SlamSystem:
                 ok = vals[0] & ref_valid
                 pnp_inl = vals[1]
                 T_pnp = se3_np.inverse(vals[2].astype(np.float64))
-                if is_loop:
+                if is_loop and self.rgbd:
+                    # the reverse PnP takes the re-measure's place; it
+                    # solves kf-cam -> ref-cam directly
+                    viso_ok = vals[3]
+                    T_viso = vals[4].astype(np.float64)
+                elif is_loop:
                     viso_ok = vals[3]
                     T_viso = se3_np.inverse(vals[4].astype(np.float64))
                     rev_ok = vals[5]
@@ -790,7 +870,7 @@ class SlamSystem:
                     dt, dr = _motion_size(
                         np.linalg.inv(T_viso[i]) @ T_pnp[i])
                     use_viso = dt < 0.5 and dr < np.radians(3.0)
-                if is_loop and rev_ok[i]:
+                if is_loop and not self.rgbd and rev_ok[i]:
                     dt_rev, dr_rev = _motion_size(
                         np.linalg.inv(T_rev[i]) @ T_pnp[i])
                     use_rev = dt_rev < 0.5 and dr_rev < np.radians(3.0)
@@ -1072,7 +1152,8 @@ class SlamSystem:
                       else _upload(sem, dev)).long()
         xyz_q, rgb_q, lbl_q, n_dev = _kf_cloud(
             _dev_img(kf, "disparity", dev), _dev_img(kf, "left", dev),
-            color, labels, moving_mask, self.K, self.cfg.mapper)
+            color, labels, moving_mask, self.K, self.cfg.mapper,
+            depth_input=self.rgbd)
         read_n = _stage_to_host([n_dev])
 
         def stage2():

@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package
-(checked in a fresh interpreter, since this test process has JAX loaded);
-the walk reaches every module of the port, the map, SegNet and the
-checkpoint among them."""
+"""The port and chip_smoke.py import neither JAX, nor the JAX package,
+nor Pillow (checked in a fresh interpreter, since this test process has
+them loaded); the walk reaches every module of the port, the map, SegNet,
+the checkpoint, the command line, the dataset readers and the RGB-D
+tracker among them."""
 
 import pkgutil
 import subprocess
@@ -19,7 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu",
+                                    "PIL"))
 print(len(names), bad)
 """
 
@@ -30,20 +32,23 @@ def test_port_imports_no_jax():
         semantic_slam_mapping_torch.__name__ + ".")}
     assert {f"semantic_slam_mapping_torch.{m}" for m in (
         "mapping.mapper", "mapping.native", "mapping.semantics",
-        "models.segnet", "utils.checkpoint")} <= names
+        "models.segnet", "utils.checkpoint", "cli", "io.png", "io.frame",
+        "io.gt_pose", "io.kitti", "io.tum", "utils.plot",
+        "frontend.rgbd_tracker", "frontend.quadmatch_desc")} <= names
     expected = len(names)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == [str(expected), "[]"], res.stdout
-    assert expected >= 20
+    assert expected >= 29
 
 
 CHIP_PROBE = """
 import sys
 import chip_smoke
 print(sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu")))
+             if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu",
+                                    "PIL")))
 """
 
 
