@@ -16,11 +16,15 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    card, exactly (tolerance 0) and in the volume's dtype, in float32 and
    bfloat16, at the command line's KITTI shape (376, 1241, 80), at an odd
    height (375, 1241, 80), at the synthetic phases' (376, 1248, 80), and
-   at a few small and ragged shapes; then times the kernel at 1241 and
-   1248 and each of its two launches with CUDA events (median of 25
-   batches of 10 calls after 3 warm-ups; the 75 MB volume exceeds the
-   50 MB L2, so it runs cold), and the launches of variants built with one
-   part switched off, to show what bounds it.
+   at a few small and ragged shapes; and on a batch of frames, the
+   window's (8, 376, 1241, 80) and a ragged (3, 37, 45, 13), where it must
+   also equal B single calls and make exactly 2 launches a call. Then
+   times the kernel at 1241, at 1248 and at the batch of 8, and each of
+   its two launches, with CUDA events (median of 25 batches of 10 calls
+   after 3 warm-ups; the 75 MB volume exceeds the 50 MB L2, so it runs
+   cold), prints each launch's plan (blocks, blocks an SM holds, ring
+   stages) at B = 1 and B = 8, and times the launches of variants built
+   with one part switched off, to show what bounds it.
 4. ``cli``: the user's workflow through the command line, as subprocesses
    on the card that run ``semantic_slam_mapping_torch.cli`` as
    ``__main__`` (what ``python -m`` does) after zeroing the kernel counts,
@@ -88,13 +92,33 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    descent, the LM + PCG solve, the keyframe cloud) at the epoch's shapes,
    per call and per keyframe, beside one PyTorch call computing the same
    function where there is one.
-11. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
+11. ``window``: the throughput mode at the command line's size: 33
+   frames of the street of ``cli`` (376x1241, 0.6 m a frame, fixed seed)
+   with the renderer's labels, as 4 windows of B = 8 pairs overlapping by
+   one frame, through ``SlamSystem(cfg, enable_mapping=True,
+   device="cuda").process_window`` with the default configuration.
+   Counts zeroed just before and read just after: the SGM kernel must run
+   exactly twice a window. Every pair must have a VO success, the ATE RMSE
+   must be under 0.3 m, every aggregate must be a (8, 376, 1241, 80)
+   bfloat16 batch, the results and the keyframes' images and labels must
+   be on the card, and the map must have voxels. The same 33 frames then
+   go through ``process_stream``; both frames/s and both ATEs are
+   printed. Last, one window's frontend is profiled: device-busy time,
+   idle share and launches a frame.
+12. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
    with fixed samples, ORB, the PnP gate, the pose-graph solve, the
    quantized keyframe cloud, SegNet's pooling with planted ties, one
    bfloat16 SegNet layer and SegNet's labels of one frame on the card and
    on the host CPU with the same inputs from one KITTI-size frame pair or
    keyframe, and the pose-graph solve twice on the card; prints each
-   tolerance and error, and raises on a miss.
+   tolerance and error, and raises on a miss. It also holds the
+   8-direction (``full_dp``) aggregate of one volume on the card to the
+   CPU's exactly, and batched SGBM on the card (4 and 8 directions) to
+   per-frame SGBM on the card exactly.
+
+``python3 chip_smoke.py --phases kernels,window`` runs the named phases
+only (after ``device`` and ``build``) and prints no result line: a quick
+check while a kernel or a phase changes.
 
 Then the kernels line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi gives them, and last ``{"ok": true, "device": ...}``.
@@ -201,6 +225,10 @@ SGM_VARIANTS = {
 # pads, the widest D
 SGM_SMALL = ((37, 24, 16), (24, 37, 16), (1, 7, 13), (33, 20, 13),
              (9, 40, 96))
+# the window phase: 33 frames as 4 windows of 8 pairs, at the cli
+# phase's size
+WINDOW_B = 8
+N_WINDOW = 4 * WINDOW_B + 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -302,8 +330,8 @@ def sgm_variant_ms(vol: torch.Tensor, p1: float, p2: float) -> dict:
         fn.restype = ctypes.c_int
 
         def launch(horizontal, addend, dest):
-            if fn(vol.data_ptr(), addend, dest.data_ptr(), H_, W_, D_, D_,
-                  p1, p2, 1, horizontal, stream):
+            if fn(vol.data_ptr(), addend, dest.data_ptr(), 1, H_, W_, D_,
+                  D_, p1, p2, 1, horizontal, stream):
                 raise RuntimeError(f"variant {name} failed to launch")
 
         res[name] = {
@@ -313,11 +341,13 @@ def sgm_variant_ms(vol: torch.Tensor, p1: float, p2: float) -> dict:
     return res
 
 
-def sgm_times(vol: torch.Tensor, p1: float, p2: float) -> dict:
+def sgm_times(vol: torch.Tensor, p1: float, p2: float,
+              plain_reps: int = 5) -> dict:
     """Milliseconds of the kernel, of each of its launches and of its plain
-    version on a bf16 volume, and the bound: the contract's bytes (the
-    volume read once, the aggregate in its dtype written once) over the
-    card's memory rate, or its float32 operations over the f32 peak."""
+    version on a bf16 volume or batch, and the bound: the contract's bytes
+    (the volume read once, the aggregate in its dtype written once) over
+    the card's memory rate, or its float32 operations over the f32
+    peak."""
     D = vol.shape[-1]
     vsum, out = torch.empty_like(vol), torch.empty_like(vol)
     n_bytes = 2 * vol.numel() * vol.element_size()
@@ -331,10 +361,30 @@ def sgm_times(vol: torch.Tensor, p1: float, p2: float) -> dict:
         horizontal_ms=cuda_ms(lambda: sgm_cuda.sgm_pass(
             vol, out, D, p1, p2, horizontal=True, addend=vsum), batch=10),
         plain_ms=cuda_ms(lambda: sgm_cuda.sgm_aggregate4_plain(vol, p1, p2),
-                         warmup=1, reps=5),
+                         warmup=1, reps=plain_reps),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=n_bytes, ops=n_ops)
+
+
+def check_sgm_batch(vol: torch.Tensor, p1: float, p2: float,
+                    label: str) -> float:
+    """check_sgm on a (B, H, W, D) batch, which must also make exactly 2
+    launches and equal B single calls bit for bit."""
+    before = sgm_cuda.sgm_aggregate4.launches
+    out = sgm_cuda.sgm_aggregate4(vol, p1, p2)
+    n_launches = sgm_cuda.sgm_aggregate4.launches - before
+    singles = torch.stack([sgm_cuda.sgm_aggregate4(v, p1, p2) for v in vol])
+    torch.cuda.synchronize()
+    same = torch.equal(out, singles)
+    emit("kernels", kernel="sgm_aggregate4", check=label,
+         dtype=str(vol.dtype).split(".")[-1], shape=list(vol.shape),
+         launches_per_call=n_launches, equals_single_calls=same)
+    if n_launches != 2 or not same:
+        raise AssertionError(f"sgm_aggregate4 on a batch ({label}, "
+                             f"{vol.dtype}): {n_launches} launches, equal "
+                             f"to {vol.shape[0]} single calls: {same}")
+    return check_sgm(vol, p1, p2, label)
 
 
 def phase_kernels() -> dict:
@@ -363,16 +413,38 @@ def phase_kernels() -> dict:
         vols[label] = base.to(torch.bfloat16).contiguous()
         del base
 
+    # the window's batch of 8 frames, and a ragged batch
+    small = torch.rand((3, 37, 45, 13), generator=gen, device="cuda") * 200
+    for dt in (torch.float32, torch.bfloat16):
+        errs.append(check_sgm_batch(small.to(dt), 7.0, 50.0,
+                                    "ragged batch 3x37x45x13"))
+    base = torch.rand((WINDOW_B, H, W_KITTI, D), generator=gen,
+                      device="cuda") * 200.0
+    for dt in (torch.float32, torch.bfloat16):
+        errs.append(check_sgm_batch(base.to(dt).contiguous(), p1, p2,
+                                    f"batch {WINDOW_B}x376x1241"))
+    batch = base.to(torch.bfloat16).contiguous()
+    del base
+    plans = {f"B={b} {'horizontal' if hz else 'vertical'}":
+             sgm_cuda.launch_plan((b, H, W_KITTI, D), torch.bfloat16, hz)
+             for b in (1, WINDOW_B) for hz in (False, True)}
+    emit("kernels", kernel="sgm_aggregate4", launch_plans=plans,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
     # times on the main path's input (the command line's bf16 volume at
-    # 376x1241), and at the synthetic phases' 1248
+    # 376x1241), at the synthetic phases' 1248 and on the window's batch
     kitti = sgm_times(vols["kitti 376x1241"], p1, p2)
     synth = sgm_times(vols["synthetic 376x1248"], p1, p2)
+    window = sgm_times(batch, p1, p2, plain_reps=3)
     variants = sgm_variant_ms(vols["kitti 376x1241"], p1, p2)
     row.update(max_abs_err=max(errs), ms=kitti["ms"],
                plain_ms=kitti["plain_ms"], bound_ms=kitti["bound_ms"],
                bound_by=kitti["bound_by"], shape=kitti["shape"],
-               ms_w1248=synth["ms"], bound_ms_w1248=synth["bound_ms"])
-    for t in (kitti, synth):
+               ms_w1248=synth["ms"], bound_ms_w1248=synth["bound_ms"],
+               ms_batch8=window["ms"], plain_ms_batch8=window["plain_ms"],
+               bound_ms_batch8=window["bound_ms"],
+               shape_batch8=window["shape"])
+    for t in (kitti, synth, window):
         emit("kernels", kernel="sgm_aggregate4", dtype="bfloat16", **t,
              library_ms=None)
     emit("kernels", kernel="sgm_aggregate4", shape=kitti["shape"],
@@ -1326,6 +1398,170 @@ def phase_segnet(slice_system: SlamSystem, frames, card: str) -> dict:
     return row
 
 
+def render_street(cfg: SlamConfig, n_frames: int, height: int, width: int,
+                  device: str):
+    """The cli phase's street (fixed seed) at 0.6 m a frame, rendered in
+    chunks on ``device``: host (n, H, W) left and right images in [0, 1]
+    and labels, and the (n, 4, 4) ground truth. (At 0.8 m a frame, as in
+    the cli phase, frame 32 stands 25.6 m down the street, where no pixel
+    of the pair passes SGBM's checks and every tracker loses it.)"""
+    K = Intrinsics.from_config(cfg.camera)
+    gen = torch.Generator(device=device).manual_seed(0)
+    world = synthetic.make_world(gen, n_boxes=14, with_moving_box=True,
+                                 device=device)
+    poses = synthetic.straight_trajectory(n_frames, speed=0.6, device=device)
+    parts = {"left": [], "right": [], "semantic": []}
+    for start in range(0, n_frames, 11):
+        seq = synthetic.render_sequence(K, world, poses[start:start + 11],
+                                        height, width, start_index=start)
+        for k, v in parts.items():
+            v.append(seq[k].cpu().numpy())
+    return (*(np.concatenate(parts[k]) for k in ("left", "right",
+                                                 "semantic")),
+            poses.cpu().numpy().astype(np.float64))
+
+
+def profile_window(system: SlamSystem, lefts, rights) -> dict:
+    """One window's frontend (track_frames_batched on B + 1 frames) on an
+    idle card: its time by CUDA events, and under the profiler its
+    device-busy time and its launches, also a frame."""
+    cfg = system.cfg
+    L, R = system._upload_window(lefts), system._upload_window(rights)
+    B = L.shape[0] - 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        tracker.track_frames_batched(
+            tracker.TrackerState.initial(cfg, "cuda"), L, R, system.K, gen,
+            cfg)
+
+    window_ms = cuda_ms(step, warmup=1, reps=3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"pairs": B, "window_ms": window_ms,
+            "ms_per_frame": window_ms / B, "wall_ms_profiled": wall_ms,
+            "device_busy_ms": busy_ms if dev else None,
+            "device_idle_share": (1.0 - busy_ms / window_ms) if dev else None,
+            "device_events": len(dev), "launches_per_frame": len(dev) / B}
+
+
+def phase_window(card: str, device: str = "cuda", height: int = H,
+                 width: int = W_KITTI) -> dict:
+    """The throughput mode: 4 windows of 8 pairs through process_window,
+    then the same frames through process_stream."""
+    cfg = SlamConfig() if width == W_KITTI else loop_camera(height, width)
+    D = cfg.sgbm.num_disparities
+    t = time.time()
+    lefts, rights, labels, gt = render_street(cfg, N_WINDOW, height, width,
+                                              device)
+    emit("window", step="rendered", frames=N_WINDOW, shape=[height, width],
+         seconds=round(time.time() - t, 2))
+    # consecutive windows share a frame: the last of one is the first of
+    # the next
+    wins = [slice(i, i + WINDOW_B + 1)
+            for i in range(0, N_WINDOW - 1, WINDOW_B)]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    # warm-up: one window on a system of its own
+    warm = SlamSystem(cfg, enable_mapping=True, device=device)
+    warm.process_window(lefts[wins[0]], rights[wins[0]],
+                        semantics=labels[wins[0]])
+    warm.finish()
+    sync()
+
+    # every aggregate of the run, by shape and dtype
+    aggs = []
+    aggregate = sgbm._aggregate
+
+    def recording_aggregate(vol, sgbm_cfg):
+        agg = aggregate(vol, sgbm_cfg)
+        aggs.append((list(agg.shape), str(agg.dtype).split(".")[-1]))
+        return agg
+
+    system = SlamSystem(cfg, enable_mapping=True, device=device)
+    sgbm._aggregate = recording_aggregate
+    try:
+        sgm_cuda.sgm_aggregate4.launches = 0
+        t = time.time()
+        outs = [system.process_window(lefts[w], rights[w],
+                                      semantics=labels[w]) for w in wins]
+        sync()
+        window_s = time.time() - t
+        launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    finally:
+        sgbm._aggregate = aggregate
+    ate = ate_rmse(np.stack(system.trajectory), gt)
+    system._drain_all()
+    sync()
+    log = system.frame_log
+    last, kf = outs[-1], system.keyframes[-1]
+    on_card = [last.pose, last.disparity, last.moving_mask, last.matches.lc,
+               system.state.pose, kf.left_dev, kf.right_dev,
+               kf.disparity_dev, *kf.feats_dev]
+
+    stream = SlamSystem(cfg, enable_mapping=True, device=device)
+    t = time.time()
+    stream.process_stream(zip(lefts, rights, [None] * N_WINDOW, labels),
+                          depth=6)
+    sync()
+    stream_s = time.time() - t
+    ate_stream = ate_rmse(np.stack(stream.trajectory), gt)
+
+    fields = dict(
+        frames=N_WINDOW, windows=len(wins), pairs_per_window=WINDOW_B,
+        shape=[height, width], seconds=window_s,
+        frames_per_s=N_WINDOW / window_s, ate_rmse_m=ate,
+        ate_bound_m=ATE_BOUND_M, stream_seconds=stream_s,
+        stream_frames_per_s=N_WINDOW / stream_s,
+        stream_ate_rmse_m=ate_stream, launches=launches,
+        aggregates=aggs, keyframes=len(system.keyframes),
+        stream_keyframes=len(stream.keyframes), map_voxels=len(system.map),
+        n_inliers=[f.n_inliers for f in log],
+        moving_px_per_frame=[f.n_moving for f in log],
+        timer={k: {"calls": v["calls"], "mean_ms": v["mean_ms"],
+                   "total_s": v["total_s"]}
+               for k, v in system.timer.summary().items()},
+        card=card)
+    if device == "cuda":
+        fields["profiled_window"] = profile_window(system, lefts[wins[1]],
+                                                   rights[wins[1]])
+    emit("window", **fields)
+
+    pairs = N_WINDOW - 1
+    checks = [
+        (len(log) == pairs and all(f.vo_success for f in log),
+         f"VO failed on a pair: {log}"),
+        (np.all(np.isfinite(np.stack(system.trajectory))) and
+         ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m"),
+        (aggs == [([WINDOW_B, height, width, D], "bfloat16")] * len(wins),
+         f"aggregates of the window path: {aggs}"),
+        (all(x is not None and x.device.type == device for x in on_card),
+         "a result of the window or keyframe data is not on the device"),
+        (len(system.map) > 0, "the map is empty"),
+    ]
+    if device == "cuda":
+        checks.append((launches["sgm_aggregate4"] == 2 * len(wins),
+                       f"sgm_aggregate4 launched "
+                       f"{launches['sgm_aggregate4']} times for "
+                       f"{len(wins)} windows, expected 2 each"))
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"window: {msg}")
+    return {"launches": launches}
+
+
 class Parity:
     """Card-against-CPU checks: each records its error and tolerance and
     raises on a miss."""
@@ -1343,6 +1579,42 @@ class Parity:
         if not ok:
             raise AssertionError(f"parity {name}: error {error} > "
                                  f"tolerance {tolerance}")
+
+
+def sgbm_batch_parity(par: Parity, img, cfg: SlamConfig,
+                      card_dev: str) -> None:
+    """full_dp and batched SGBM: the 8-direction aggregate card against
+    CPU exactly, full_dp SGBM card against CPU as the 4-direction check,
+    and a batch of two pairs on the card against each pair alone."""
+    # full_dp: the 8-direction aggregate of one volume (the CPU's) on both
+    # devices, exactly; then the whole of SGBM with it, as above
+    fcfg = dataclasses.replace(cfg.sgbm, full_dp=True)
+    vol = sgbm._cost_volume(img["cpu"][0], img["cpu"][1], fcfg)
+    agg8 = {dev: sgbm._aggregate(vol.to(dev), fcfg).cpu()
+            for dev in (card_dev, "cpu")}
+    par.check("sgbm full_dp aggregate (8 directions), card vs CPU",
+              float((agg8[card_dev].float() - agg8["cpu"].float()).abs()
+                    .max()), 0.0, dtype=str(agg8["cpu"].dtype))
+    del vol, agg8
+    sg8 = {dev: sgbm.compute(img[dev][0], img[dev][1], fcfg) for dev in img}
+    both8 = sg8[card_dev].valid.cpu() & sg8["cpu"].valid
+    par.check("sgbm.compute full_dp disparity (jointly valid px)", float(
+        (sg8[card_dev].disparity.cpu() - sg8["cpu"].disparity)[both8].abs()
+        .max()), 1e-3, valid_px=int(both8.sum()))
+    par.check("sgbm.compute full_dp valid-mask disagreement (share of px)",
+              float((sg8[card_dev].valid.cpu() != sg8["cpu"].valid).float()
+                    .mean()), 1e-3)
+    # a batch of two pairs on the card against each pair alone on the card
+    lb = torch.stack([img[card_dev][0], img[card_dev][2]])
+    rb = torch.stack([img[card_dev][1], img[card_dev][3]])
+    for label, scfg in (("4 directions", cfg.sgbm), ("full_dp", fcfg)):
+        sb = sgbm.compute(lb, rb, scfg)
+        ones = [sgbm.compute(lb[i], rb[i], scfg) for i in range(2)]
+        differ = sum(int((o.valid != sb.valid[i]).sum())
+                     + int((o.disparity != sb.disparity[i]).sum())
+                     for i, o in enumerate(ones))
+        par.check(f"batched sgbm.compute ({label}) on the card vs per "
+                  "frame: differing px", differ, 0)
 
 
 def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
@@ -1368,6 +1640,8 @@ def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
         .max()), 1e-3, valid_px=int(both.sum()))
     par.check("sgbm.compute valid-mask disagreement (share of px)",
               float((gv != cv).float().mean()), 1e-3)
+
+    sgbm_batch_parity(par, img, cfg, card_dev)
 
     # argmin over D of a bf16 aggregate with planted ties: the first
     # minimum on both devices
@@ -1529,7 +1803,12 @@ def segnet_parity(par: Parity, frames, card_dev: str) -> None:
               classes=int(labels["float32", "cpu"].unique().numel()))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args:
+        if len(args) != 2 or args[0] != "--phases":
+            raise SystemExit("usage: chip_smoke.py [--phases a,b,...]")
+        return run_phases(args[1].split(","))
     info = phase_device()
     phase_build()
     row = phase_kernels()
@@ -1540,6 +1819,7 @@ def main() -> int:
     phase_segnet(slice_system, frames, info["card"])
     phase_stages(frames)
     phase_candidates(epoch)
+    window = phase_window(info["card"])
     phase_parity(frames, epoch["system"])
     # the main path is the command line's slam; each path's count was
     # zeroed just before it and read just after
@@ -1547,10 +1827,37 @@ def main() -> int:
     row["launches_by_path"] = {
         **cli["launches"], "rgbd": rgbd["sgm_launches"],
         "slice": slice_launches[row["name"]],
-        "epoch": epoch["launches"][row["name"]]}
+        "epoch": epoch["launches"][row["name"]],
+        "window": window["launches"][row["name"]]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)
+    return 0
+
+
+def sgbm_parity_alone(frames) -> None:
+    """sgbm_batch_parity on the parity phase's frame pair."""
+    cfg = SlamConfig()
+    upload = SlamSystem(cfg, device="cuda")._upload_gray
+    (pl, pr), (cl, cr) = frames[1], frames[2]
+    img = {dev: [upload(x).to(dev) for x in (cl, cr, pl, pr)]
+           for dev in ("cuda", "cpu")}
+    sgbm_batch_parity(Parity(), img, cfg, "cuda")
+
+
+def run_phases(names) -> int:
+    """The named phases alone, after device and build; no result line."""
+    info = phase_device()
+    phase_build()
+    runs = {"kernels": lambda: phase_kernels(),
+            "window": lambda: phase_window(info["card"]),
+            "epoch": lambda: phase_epoch(info["card"]),
+            "sgbm_parity": lambda: sgbm_parity_alone(
+                render_frames(SlamConfig())[0])}
+    for name in names:
+        if name not in runs:
+            raise SystemExit(f"unknown phase {name}; one of {list(runs)}")
+        runs[name]()
     return 0
 
 

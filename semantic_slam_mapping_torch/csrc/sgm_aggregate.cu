@@ -26,7 +26,11 @@
 //
 // Design. Two launches, stream-ordered: the vertical pair writes
 // vsum = r(vf + vb), the horizontal pair then writes out = r(vsum + r(hf +
-// hb)). In each launch a block of two warps owns one scan line: warp 0
+// hb)). A batch of B frames, (B, H, W, Dp) contiguous, is one launch of B
+// times the lines each: a block finds its frame and its line in the frame
+// from its index, and lines are independent, so a batched launch gives
+// what B single ones give, bit for bit. In each launch a block of two warps
+// owns one scan line: warp 0
 // walks it forward and warp 1 backward, at the same time, so a line's chain
 // is n steps and not 2n. They meet in the middle. In its first half each
 // warp writes its rounded path to the destination at the positions it owns;
@@ -48,7 +52,11 @@
 // copies (LDGSTS, L2 only) issued nst - 1 stages ahead. One path serves both
 // orientations: a vertical step is one pixel (D values, contiguous) strided
 // by W pixels, a horizontal stage is kCh contiguous pixels. The host picks
-// nst so that every block of the launch is resident at once (one wave).
+// nst so that every block of the launch is resident at once (one wave)
+// when there are at most 32 blocks an SM; past that (a batch: B = 8 frames
+// of 376x1241 give 9,928 vertical lines, 75 an SM on 132 SMs) it sizes the
+// ring for 32 blocks an SM, which is the floor of kMinStages stages, and
+// the launch runs in several waves (sgm_aggregate_plan reports it).
 //
 // One step is a short chain: minL' is one redux.sync.min.u32 on the bit
 // patterns of the float32 path costs (every cost is >= +0.0 and the padded
@@ -302,7 +310,8 @@ __device__ __forceinline__ void walk(const Walk<T, ADD>& w, const T* inf4,
 template <typename T, bool ADD>
 __global__ void __launch_bounds__(64, ADD ? 4 : 10)
 sgm_line_pair(const T* __restrict__ vol, const T* __restrict__ addend,
-              T* __restrict__ dest, int n, long long line_stride,
+              T* __restrict__ dest, int n, int frame_lines,
+              long long frame_stride, long long line_stride,
               long long step_stride, int D, int Dp, float p1, float p2,
               int nst) {
   using W = Walk<T, ADD>;
@@ -319,7 +328,10 @@ sgm_line_pair(const T* __restrict__ vol, const T* __restrict__ addend,
   w.dest = dest;
   w.fwd = warp == 0;
   w.dstep = (w.fwd ? step_stride : -step_stride) * Dp;
-  w.origin = blockIdx.x * line_stride * Dp + (w.fwd ? 0 : (n - 1) * -w.dstep);
+  // block -> (frame, line of the frame)
+  const int frame = blockIdx.x / frame_lines, line = blockIdx.x % frame_lines;
+  w.origin = frame * frame_stride + line * line_stride * Dp +
+             (w.fwd ? 0 : (n - 1) * -w.dstep);
   w.Dp = Dp;
   w.nst = nst;
   w.stage = W::kCh * Dp;
@@ -364,27 +376,28 @@ struct DeviceLimits {
   }
 };
 
+// How a launch runs: its blocks, the ring depth that every block of a wave
+// of up to 32 blocks an SM can have, and the blocks an SM then holds.
+struct Plan {
+  int blocks = 0, per_sm = 0, nst = 0, resident = 0;
+  size_t smem = 0;
+};
+
 template <typename T, bool ADD>
-int launch(const void* vol, const void* addend, void* dest, int H, int W,
-           int D, int Dp, float p1, float p2, int horizontal,
-           cudaStream_t stream) {
+cudaError_t plan_launch(int B, int H, int W, int Dp, int horizontal,
+                        int dev, Plan& p) {
   constexpr int kStreams = Walk<T, ADD>::kStreams;
   auto kernel = sgm_line_pair<T, ADD>;
-  const int n_lines = horizontal ? H : W;
-  const int n = horizontal ? W : H;
-
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   // per device, once: its limits, and the kernel's shared-memory ceiling
   // raised to the most a block may have
   static DeviceLimits limits[kMaxDevices];
   static bool opted_in[kMaxDevices];
   DeviceLimits& lim = limits[dev];
+  cudaError_t err = cudaSuccess;
   if (!lim.n_sm) {
     err = lim.query(dev);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
   if (!opted_in[dev]) {
     err = cudaFuncSetAttribute(kernel,
@@ -394,52 +407,89 @@ int launch(const void* vol, const void* addend, void* dest, int H, int W,
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     opted_in[dev] = true;
   }
-
+  p.blocks = B * (horizontal ? H : W);
   // the deepest ring at which every block of the launch is resident at once
-  const int per_sm = min(32, (n_lines + lim.n_sm - 1) / lim.n_sm);
+  p.per_sm = min(32, (p.blocks + lim.n_sm - 1) / lim.n_sm);
   const long long budget = min((long long)lim.optin,
-                               (long long)(lim.per_sm_smem / per_sm -
+                               (long long)(lim.per_sm_smem / p.per_sm -
                                            lim.reserved));
   const long long slot_bytes =  // both warps
       2LL * Walk<T, ADD>::kCh * Dp * sizeof(T);
-  const int nst = max(kMinStages, min(kMaxStages, (int)((budget - 16) /
-                                                        slot_bytes /
-                                                        kStreams)));
-  const size_t smem = 16 + (size_t)slot_bytes * nst * kStreams;
+  p.nst = max(kMinStages, min(kMaxStages, (int)((budget - 16) /
+                                                slot_bytes / kStreams)));
+  p.smem = 16 + (size_t)slot_bytes * p.nst * kStreams;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.resident, kernel,
+                                                       64, p.smem);
+}
 
-  kernel<<<n_lines, 64, smem, stream>>>(
+template <typename T, bool ADD>
+int launch(const void* vol, const void* addend, void* dest, int B, int H,
+           int W, int D, int Dp, float p1, float p2, int horizontal,
+           cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  Plan p;
+  err = plan_launch<T, ADD>(B, H, W, Dp, horizontal, dev, p);
+  if (err != cudaSuccess) return (int)err;
+  const int n = horizontal ? W : H;
+  sgm_line_pair<T, ADD><<<p.blocks, 64, p.smem, stream>>>(
       static_cast<const T*>(vol), static_cast<const T*>(addend),
-      static_cast<T*>(dest), n, horizontal ? W : 1, horizontal ? 1 : W, D,
-      Dp, p1, p2, nst);
+      static_cast<T*>(dest), n, horizontal ? H : W, (long long)H * W * Dp,
+      horizontal ? W : 1, horizontal ? 1 : W, D, Dp, p1, p2, p.nst);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch on `stream`. vol, addend and dest are (H, W, Dp) contiguous,
-// bfloat16 when is_bf16 else float32, 16-byte aligned, with Dp * element
-// size a multiple of 16; only d < D is computed. horizontal == 0 walks the
-// columns, 1 the rows. addend == NULL: dest = r(f + b); otherwise dest =
-// r(addend + r(f + b)). Returns the cudaError_t of the set-up and the
-// launch.
+// One launch on `stream`. vol, addend and dest are (B, H, W, Dp)
+// contiguous, bfloat16 when is_bf16 else float32, 16-byte aligned, with
+// Dp * element size a multiple of 16; only d < D is computed. horizontal
+// == 0 walks the columns of every frame, 1 the rows. addend == NULL: dest
+// = r(f + b); otherwise dest = r(addend + r(f + b)). Returns the
+// cudaError_t of the set-up and the launch.
 extern "C" int sgm_aggregate_pass(const void* vol, const void* addend,
-                                  void* dest, int H, int W, int D, int Dp,
-                                  float p1, float p2, int is_bf16,
+                                  void* dest, int B, int H, int W, int D,
+                                  int Dp, float p1, float p2, int is_bf16,
                                   int horizontal, void* stream) {
   const int vec = is_bf16 ? 8 : 4;
-  if (D < 1 || D > 31 * kPer || Dp < D || Dp % vec || H < 1 || W < 1)
+  if (D < 1 || D > 31 * kPer || Dp < D || Dp % vec || B < 1 || H < 1 ||
+      W < 1 || (long long)B * (horizontal ? H : W) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return addend ? launch<__nv_bfloat16, true>(vol, addend, dest, H, W, D,
-                                                Dp, p1, p2, horizontal, s)
-                  : launch<__nv_bfloat16, false>(vol, addend, dest, H, W, D,
-                                                 Dp, p1, p2, horizontal, s);
-  return addend ? launch<float, true>(vol, addend, dest, H, W, D, Dp, p1, p2,
-                                      horizontal, s)
-                : launch<float, false>(vol, addend, dest, H, W, D, Dp, p1, p2,
-                                       horizontal, s);
+    return addend ? launch<__nv_bfloat16, true>(vol, addend, dest, B, H, W,
+                                                D, Dp, p1, p2, horizontal, s)
+                  : launch<__nv_bfloat16, false>(vol, addend, dest, B, H, W,
+                                                 D, Dp, p1, p2, horizontal,
+                                                 s);
+  return addend ? launch<float, true>(vol, addend, dest, B, H, W, D, Dp, p1,
+                                      p2, horizontal, s)
+                : launch<float, false>(vol, addend, dest, B, H, W, D, Dp, p1,
+                                       p2, horizontal, s);
+}
+
+// The plan of a launch of sgm_aggregate_pass with these arguments on
+// device `dev` (the vertical launch has no addend, the horizontal one has
+// one): out = {blocks, blocks an SM holds at once, ring stages, shared
+// memory bytes of a block}. Launches nothing.
+extern "C" int sgm_aggregate_plan(int B, int H, int W, int Dp, int is_bf16,
+                                  int horizontal, int dev, int* out) {
+  Plan p;
+  cudaError_t err;
+  if (is_bf16)
+    err = horizontal
+              ? plan_launch<__nv_bfloat16, true>(B, H, W, Dp, 1, dev, p)
+              : plan_launch<__nv_bfloat16, false>(B, H, W, Dp, 0, dev, p);
+  else
+    err = horizontal ? plan_launch<float, true>(B, H, W, Dp, 1, dev, p)
+                     : plan_launch<float, false>(B, H, W, Dp, 0, dev, p);
+  out[0] = p.blocks;
+  out[1] = p.resident;
+  out[2] = p.nst;
+  out[3] = (int)p.smem;
+  return (int)err;
 }

@@ -29,8 +29,10 @@ def quad_match(cur_left: torch.Tensor, cur_right: torch.Tensor,
     """Detect in the current left image and track the circle
     lc -> rc -> rp -> lp, plus the direct lc -> lp check.
 
-    cur_disparity: optional (H, W) disparity seeding the stereo leg.
-    flow_prior: optional (2,) image-flow prior seeding the temporal legs.
+    Frames are (H, W) or a batch (B, H, W) of independent pairs.
+    cur_disparity: optional (..., H, W) disparity seeding the stereo leg.
+    flow_prior: optional (2,) or, for a batch, (B, 2) image-flow prior
+    seeding the temporal legs.
     """
     kp = corners.gftt(cur_left, max_corners=qcfg.max_features,
                       quality_level=gcfg.quality_level,
@@ -45,7 +47,8 @@ def quad_match(cur_left: torch.Tensor, cur_right: torch.Tensor,
     if cur_disparity is not None:
         d0 = torch.clamp(im.bilinear_sample(cur_disparity, lc), min=0.0)
         stereo_init = torch.stack([-d0, torch.zeros_like(d0)], dim=-1)
-    t_init = flow_prior.expand_as(lc) if flow_prior is not None else None
+    t_init = (flow_prior[..., None, :].expand_as(lc)
+              if flow_prior is not None else None)
 
     leg_rc = klt.track_pyramid(pyr["lc"], pyr["rc"], lc, kcfg, stereo_init)
     leg_rp = klt.track_pyramid(pyr["rc"], pyr["rp"], leg_rc.xy, kcfg, t_init)
@@ -57,13 +60,13 @@ def quad_match(cur_left: torch.Tensor, cur_right: torch.Tensor,
                & leg_lp.status & direct_lp.status)
     closure = torch.linalg.norm(lp - lp2, dim=-1)
     valid = (tracked
-             & (torch.abs(lc[:, 1] - rc[:, 1]) < qcfg.max_dy_stereo)
-             & (torch.abs(lp[:, 1] - rp[:, 1]) < qcfg.max_dy_stereo)
-             & (torch.abs(lc[:, 1] - lp[:, 1]) < qcfg.max_dy_temporal)
-             & (torch.abs(rc[:, 1] - rp[:, 1]) < qcfg.max_dy_temporal)
-             & (torch.abs(lc[:, 0] - lp[:, 0]) < qcfg.max_dx_temporal)
-             & (torch.abs(rc[:, 0] - rp[:, 0]) < qcfg.max_dx_temporal)
-             & (lc[:, 0] - rc[:, 0] > qcfg.min_disparity)
-             & (lp[:, 0] - rp[:, 0] > qcfg.min_disparity)
+             & (torch.abs(lc[..., 1] - rc[..., 1]) < qcfg.max_dy_stereo)
+             & (torch.abs(lp[..., 1] - rp[..., 1]) < qcfg.max_dy_stereo)
+             & (torch.abs(lc[..., 1] - lp[..., 1]) < qcfg.max_dy_temporal)
+             & (torch.abs(rc[..., 1] - rp[..., 1]) < qcfg.max_dy_temporal)
+             & (torch.abs(lc[..., 0] - lp[..., 0]) < qcfg.max_dx_temporal)
+             & (torch.abs(rc[..., 0] - rp[..., 0]) < qcfg.max_dx_temporal)
+             & (lc[..., 0] - rc[..., 0] > qcfg.min_disparity)
+             & (lp[..., 0] - rp[..., 0] > qcfg.min_disparity)
              & (closure < qcfg.loop_consistency_px))
     return QuadMatches(lp=lp, rp=rp, lc=lc, rc=rc, valid=valid)

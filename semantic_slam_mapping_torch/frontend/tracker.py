@@ -7,11 +7,16 @@ flow prior, RANSAC + GN motion, dense triangulation with the Kalman-smoothed
 ground pitch, the U-disparity moving mask, and pose integration. The state
 is a tuple of tensors that stays on the device; nothing in a step reads a
 value back to the host.
+
+``track_frames_batched`` (over ``window_core``) is the throughput mode: a
+window of B frame pairs runs every per-frame stage once on a leading batch
+dimension, and only the pitch Kalman filter and the pose state machine
+walk the B results in order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -105,16 +110,8 @@ def track_frame(state: TrackerState,
         num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
         line_ab=(line_a, line_b))
 
-    # success: pose <- pose inv(T_delta); failure: constant velocity
-    first = state.status == NOT_READY
-    ok = res.success
-    pose_ok = se3.compose(state.pose, se3.inverse(res.T_delta))
-    pose_pred = se3.compose(state.pose, se3.inverse(state.velocity))
-    new_pose = se3.orthonormalize(torch.where(ok, pose_ok, pose_pred))
-    new_velocity = torch.where(ok, res.T_delta, state.velocity)
-    new_lost = torch.where(ok | first, 0, state.lost_count + 1).int()
-    new_status = torch.where(new_lost > cfg.tracker.max_lost_frames,
-                             LOST, OK).int()
+    new_pose, new_velocity, new_lost, new_status = _integrate(
+        state, res.T_delta, res.success, cfg)
 
     new_state = TrackerState(
         status=new_status, pose=new_pose, velocity=new_velocity,
@@ -126,6 +123,103 @@ def track_frame(state: TrackerState,
         moving_mask=uv_res.moving_mask, disparity=disparity, matches=m,
         vo_success=res.success, pitch=uv_res.pitch)
     return new_state, out
+
+
+def _integrate(state: TrackerState, T_delta: torch.Tensor,
+               success: torch.Tensor, cfg: SlamConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The pose state machine of one frame: success integrates
+    pose inv(T_delta), failure predicts at constant velocity. Returns
+    (pose, velocity, lost count, status)."""
+    first = state.status == NOT_READY
+    pose_ok = se3.compose(state.pose, se3.inverse(T_delta))
+    pose_pred = se3.compose(state.pose, se3.inverse(state.velocity))
+    new_pose = se3.orthonormalize(torch.where(success, pose_ok, pose_pred))
+    new_velocity = torch.where(success, T_delta, state.velocity)
+    new_lost = torch.where(success | first, 0, state.lost_count + 1).int()
+    new_status = torch.where(new_lost > cfg.tracker.max_lost_frames,
+                             LOST, OK).int()
+    return new_pose, new_velocity, new_lost, new_status
+
+
+def window_core(state: TrackerState,
+                cur_l: torch.Tensor, cur_r: torch.Tensor,
+                prev_l: torch.Tensor, prev_r: torch.Tensor,
+                K: Intrinsics, generator: Optional[torch.Generator],
+                cfg: SlamConfig, picks: Union[torch.Tensor, Callable,
+                                              None] = None
+                ) -> Tuple[TrackerState, FrameResult]:
+    """The frontend over B frame pairs, already split into current and
+    previous (B, H, W) images. SGBM, quad matching, RANSAC VO, the pitch
+    measurement and the U-disparity pass each run once over the batch;
+    the temporal KLT legs of every pair are seeded from the window-entry
+    velocity; the pitch Kalman filter, then the pose state machine, walk
+    the B results in order. ``picks``: optional (B, R, 3) RANSAC samples,
+    or a function of the pairs' (B,) valid-match counts that returns them
+    or None; None draws them from ``generator`` per pair. Returns the
+    final state and a FrameResult whose fields have a leading B."""
+    B = cur_l.shape[0]
+    sg = sgbm.compute(cur_l, cur_r, cfg.sgbm)
+    disparity = torch.where(sg.valid, sg.disparity, 0.0)
+
+    fp = _velocity_flow_prior(state.velocity, K, cfg)
+    m = quadmatch.quad_match(
+        cur_left=cur_l, cur_right=cur_r, prev_left=prev_l,
+        prev_right=prev_r, qcfg=cfg.quadmatch, gcfg=cfg.gftt,
+        kcfg=cfg.klt, cur_disparity=disparity, flow_prior=fp)
+
+    if callable(picks):
+        picks = picks(m.valid.sum(dim=-1))
+    res = vo.estimate_motion(m, K, generator, cfg.vo, picks=picks)
+
+    # the pitch is measured per frame; the Kalman filter is sequential
+    pts = gstereo.triangulate_image(K, disparity, cfg.camera)
+    pitch_meas, line_a, line_b = uvd.measure_pitch(
+        disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
+        cfg.uvdisparity)
+    kf = state.pitch_kf
+    smooth = []
+    for i in range(B):
+        kf = uvd.pitch_kalman_update(kf, pitch_meas[i:i + 1],
+                                     cfg.uvdisparity)
+        smooth.append(kf.x[0])
+    pts_c = gstereo.correct_pitch(pts, torch.stack(smooth), cfg.camera)
+    uv_res = uvd.detect_moving_objects(
+        disparity, sg.valid, pts_c.roi,
+        m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
+        num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
+        line_ab=(line_a, line_b))
+
+    poses, statuses = [], []
+    for i in range(B):
+        pose, velocity, lost, status = _integrate(
+            state, res.T_delta[i], res.success[i], cfg)
+        state = state._replace(status=status, pose=pose, velocity=velocity,
+                               lost_count=lost,
+                               frame_index=state.frame_index + 1)
+        poses.append(pose)
+        statuses.append(status)
+    state = state._replace(pitch_kf=kf)
+    out = FrameResult(
+        pose=torch.stack(poses), T_delta=res.T_delta,
+        status=torch.stack(statuses), n_matches=m.valid.sum(dim=-1),
+        n_inliers=res.n_inliers, moving_mask=uv_res.moving_mask,
+        disparity=disparity, matches=m, vo_success=res.success,
+        pitch=uv_res.pitch)
+    return state, out
+
+
+def track_frames_batched(state: TrackerState, lefts: torch.Tensor,
+                         rights: torch.Tensor, K: Intrinsics,
+                         generator: Optional[torch.Generator],
+                         cfg: SlamConfig,
+                         picks: Union[torch.Tensor, Callable, None] = None
+                         ) -> Tuple[TrackerState, FrameResult]:
+    """Throughput mode: (B+1, H, W) consecutive frames give the results of
+    the B pairs (i-1, i), as one batched pass (see :func:`window_core`)."""
+    return window_core(state, lefts[1:], rights[1:], lefts[:-1],
+                       rights[:-1], K, generator, cfg, picks)
 
 
 def adjust(state: TrackerState, new_pose: torch.Tensor) -> TrackerState:

@@ -5,7 +5,8 @@ V-disparity ground-line fit and pitch (with a 2-state Kalman filter),
 U-disparity over obstacle pixels, one connected-component pass over the
 thresholded U-disparity, and a component is moving iff it holds at least
 one VO-outlier seed, fewer than ``inlier_tolerance`` inlier seeds and at
-least ``min_area`` cells. Histograms are ``index_add_`` scatter-adds.
+least ``min_area`` cells. Histograms are per-frame ``scatter_add_``s, so
+a batch (B, H, W) of frames gives what each frame gives alone.
 """
 
 from __future__ import annotations
@@ -50,13 +51,13 @@ def pitch_kalman_update(state: PitchKalmanState, measurement: torch.Tensor,
 
 
 class UVResult(NamedTuple):
-    moving_mask: torch.Tensor    # (H, W) bool
+    moving_mask: torch.Tensor    # (..., H, W) bool
     pitch: torch.Tensor          # measured ground pitch (rad)
     horizon_row: torch.Tensor    # v at disparity 0 of the ground line
-    ground_mask: torch.Tensor    # (H, W) bool
-    u_disparity: torch.Tensor    # (D, W) sigmoid-adjusted U-disparity
-    inlier_roi: torch.Tensor     # (N,)
-    outlier_roi: torch.Tensor    # (N,)
+    ground_mask: torch.Tensor    # (..., H, W) bool
+    u_disparity: torch.Tensor    # (..., D, W) sigmoid-adjusted U-disparity
+    inlier_roi: torch.Tensor     # (..., N)
+    outlier_roi: torch.Tensor    # (..., N)
 
 
 def _bins(disparity: torch.Tensor, num_disparities: int) -> torch.Tensor:
@@ -64,55 +65,70 @@ def _bins(disparity: torch.Tensor, num_disparities: int) -> torch.Tensor:
     return torch.clamp(disparity.long(), 0, num_disparities - 1)
 
 
+def _count(n: int, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-frame histogram: (..., n) sums of ``w`` at the flat indices
+    ``idx`` (both (..., M)) of each frame, in ``w``'s dtype."""
+    out = torch.zeros(idx.shape[:-1] + (n,), dtype=w.dtype,
+                      device=idx.device)
+    return out.scatter_add_(-1, idx, w)
+
+
+def _flat(x: torch.Tensor, nd: int = 2) -> torch.Tensor:
+    """The last ``nd`` dims of ``x`` as one."""
+    return x.reshape(x.shape[:x.dim() - nd] + (-1,))
+
+
 def v_disparity(disparity: torch.Tensor, valid: torch.Tensor,
                 num_disparities: int) -> torch.Tensor:
-    """(H, W) disparity -> (H, D) row histogram of the valid pixels."""
-    H, W = disparity.shape
+    """(..., H, W) disparity -> (..., H, D) row histogram of the valid
+    pixels."""
+    H, W = disparity.shape[-2:]
     rows = torch.arange(H, device=disparity.device)[:, None]
     flat = (rows * num_disparities + _bins(disparity, num_disparities))
-    hist = torch.zeros(H * num_disparities, device=disparity.device)
-    hist.index_add_(0, flat.reshape(-1), valid.reshape(-1).float())
-    return hist.reshape(H, num_disparities)
+    hist = _count(H * num_disparities, _flat(flat), _flat(valid).float())
+    return hist.reshape(disparity.shape[:-2] + (H, num_disparities))
 
 
 def u_disparity(disparity: torch.Tensor, mask: torch.Tensor,
                 num_disparities: int) -> torch.Tensor:
-    """(H, W) disparity -> (D, W) column histogram of the ``mask`` pixels."""
-    H, W = disparity.shape
+    """(..., H, W) disparity -> (..., D, W) column histogram of the
+    ``mask`` pixels."""
+    H, W = disparity.shape[-2:]
     cols = torch.arange(W, device=disparity.device)[None, :]
     flat = _bins(disparity, num_disparities) * W + cols
-    hist = torch.zeros(num_disparities * W, device=disparity.device)
-    hist.index_add_(0, flat.reshape(-1), mask.reshape(-1).float())
-    return hist.reshape(num_disparities, W)
+    hist = _count(num_disparities * W, _flat(flat), _flat(mask).float())
+    return hist.reshape(disparity.shape[:-2] + (num_disparities, W))
 
 
 def fit_ground_line(vdisp: torch.Tensor,
                     cfg: UVDisparityConfig = UVDisparityConfig()
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fit the ground line v = a d + b to the V-disparity: blur, Otsu
-    threshold, per-column weighted centroid of the lower strong band, then
-    weighted least squares (column d = 0 ignored)."""
-    H, D = vdisp.shape
+    """Fit the ground line v = a d + b to each V-disparity (..., H, D):
+    blur, Otsu threshold, per-column weighted centroid of the lower strong
+    band, then weighted least squares (column d = 0 ignored)."""
+    H, D = vdisp.shape[-2:]
     dev = vdisp.device
     sm = im.gaussian_blur(vdisp, sigma=max(0.5, cfg.v_blur_ksize / 3.0),
                           radius=max(1, cfg.v_blur_ksize // 2))
-    th = im.otsu_threshold(sm, n_bins=cfg.otsu_bins,
-                           value_range=(0.0, torch.max(sm) + 1e-6))
-    strong = sm > torch.clamp(th, min=1.0)
+    th = im.otsu_threshold(
+        sm, n_bins=cfg.otsu_bins,
+        value_range=(0.0, sm.amax(dim=(-2, -1)) + 1e-6))
+    strong = sm > torch.clamp(th, min=1.0)[..., None, None]
     rows = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
-    col_max = torch.where(strong, rows, -1.0).amax(dim=0)
-    lower_half = rows >= (col_max[None, :] - 4.0)
+    col_max = torch.where(strong, rows, -1.0).amax(dim=-2)
+    lower_half = rows >= (col_max[..., None, :] - 4.0)
     wgt = torch.where(strong & lower_half, sm, 0.0)
-    col_w = torch.sum(wgt, dim=0)
-    v_bot = torch.sum(wgt * rows, dim=0) / torch.clamp(col_w, min=1e-6)
+    col_w = torch.sum(wgt, dim=-2)
+    v_bot = torch.sum(wgt * rows, dim=-2) / torch.clamp(col_w, min=1e-6)
     w = (col_w > 0).float()
-    w[0] = 0.0
+    w[..., 0] = 0.0
     ds = torch.arange(D, dtype=torch.float32, device=dev)
-    sw = torch.sum(w) + 1e-6
-    mx = torch.sum(w * ds) / sw
-    my = torch.sum(w * v_bot) / sw
-    cov = torch.sum(w * (ds - mx) * (v_bot - my)) / sw
-    var = torch.sum(w * (ds - mx) ** 2) / sw
+    sw = torch.sum(w, dim=-1) + 1e-6
+    mx = torch.sum(w * ds, dim=-1) / sw
+    my = torch.sum(w * v_bot, dim=-1) / sw
+    cov = torch.sum(w * (ds - mx[..., None]) * (v_bot - my[..., None]),
+                    dim=-1) / sw
+    var = torch.sum(w * (ds - mx[..., None]) ** 2, dim=-1) / sw
     a = cov / torch.clamp(var, min=1e-6)
     return a, my - a * mx
 
@@ -133,7 +149,8 @@ def measure_pitch(disparity: torch.Tensor, valid: torch.Tensor,
                   roi: torch.Tensor, K: Intrinsics, num_disparities: int,
                   cfg: UVDisparityConfig = UVDisparityConfig()
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """V-disparity ground-line fit -> (pitch measurement, line a, line b)."""
+    """V-disparity ground-line fit -> (pitch measurement, line a, line b),
+    one of each per (H, W) frame."""
     vd = v_disparity(disparity, valid & roi, num_disparities)
     a, b = fit_ground_line(vd, cfg)
     return ground_pitch(K, b), a, b
@@ -147,10 +164,11 @@ def detect_moving_objects(
         cfg: UVDisparityConfig = UVDisparityConfig(),
         line_ab: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         ) -> UVResult:
-    """Full U-V-disparity pass for one frame. inlier_uv / outlier_uv: (N, 2)
+    """Full U-V-disparity pass for one (H, W) frame or a batch (B, H, W)
+    of frames, each on its own. inlier_uv / outlier_uv: (..., N, 2)
     current-left pixels of the VO inliers and outliers. ``line_ab`` is the
     ground line from :func:`measure_pitch` (fit here when None)."""
-    H, W = disparity.shape
+    H, W = disparity.shape[-2:]
     D = num_disparities
     dev = disparity.device
     if line_ab is None:
@@ -160,47 +178,52 @@ def detect_moving_objects(
     pitch = ground_pitch(K, b)
 
     rows = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
-    ground = valid & (torch.abs(rows - (a * disparity + b))
+    ground = valid & (torch.abs(rows - (a[..., None, None] * disparity
+                                        + b[..., None, None]))
                       < 3.0 + 0.05 * disparity)
 
     def pixel(uv):
-        x = torch.clamp(uv[:, 0].long(), 0, W - 1)
-        y = torch.clamp(uv[:, 1].long(), 0, H - 1)
+        x = torch.clamp(uv[..., 0].long(), 0, W - 1)
+        y = torch.clamp(uv[..., 1].long(), 0, H - 1)
         return x, y
 
     inl_x, inl_y = pixel(inlier_uv)
     out_x, out_y = pixel(outlier_uv)
-    inl_ok = inlier_valid & roi[inl_y, inl_x]
-    out_ok = outlier_valid & roi[out_y, out_x]
+    inl_ok = inlier_valid & im.take(roi, inl_y, inl_x)
+    out_ok = outlier_valid & im.take(roi, out_y, out_x)
 
     ud = u_disparity(disparity, valid & roi & ~ground, D)
     strong = ud >= cfg.min_intensity
-    same = (torch.roll(strong, 1, 0), torch.roll(strong, -1, 0),
-            torch.roll(strong, 1, 1), torch.roll(strong, -1, 1))
-    lbl = connected_components(strong, same,
-                               sweeps=cfg.flood_fill_sweeps).reshape(-1)
+    same = (torch.roll(strong, 1, -2), torch.roll(strong, -1, -2),
+            torch.roll(strong, 1, -1), torch.roll(strong, -1, -1))
+    lbl = _flat(connected_components(strong, same,
+                                     sweeps=cfg.flood_fill_sweeps))
 
     def seed_cells(x, y, ok):
         """Feature pixels -> their (d_bin, u) U-disparity cells."""
-        dv = disparity[y, x]
+        dv = im.take(disparity, y, x)
         d = _bins(dv, D)
-        return d * W + x, ok & (dv > cfg.min_disparity_raw) & strong[d, x]
+        return (d * W + x,
+                ok & (dv > cfg.min_disparity_raw) & im.take(strong, d, x))
+
+    def comp_of(cells):
+        return torch.gather(lbl, -1, cells)
 
     out_cell, out_cell_ok = seed_cells(out_x, out_y, out_ok)
     inl_cell, inl_cell_ok = seed_cells(inl_x, inl_y, inl_ok)
     n_cells = D * W
-    comp_area = torch.zeros(n_cells, device=dev).index_add_(
-        0, lbl, strong.reshape(-1).float())
-    out_counts = torch.zeros(n_cells, dtype=torch.int32, device=dev)
-    out_counts.index_add_(0, lbl[out_cell], out_cell_ok.int())
-    inl_counts = torch.zeros(n_cells, dtype=torch.int32, device=dev)
-    inl_counts.index_add_(0, lbl[inl_cell], inl_cell_ok.int())
+    comp_area = _count(n_cells, lbl, _flat(strong).float())
+    out_counts = _count(n_cells, comp_of(out_cell), out_cell_ok.int())
+    inl_counts = _count(n_cells, comp_of(inl_cell), inl_cell_ok.int())
     moving_comp = ((out_counts >= 1) & (inl_counts < cfg.inlier_tolerance)
                    & (comp_area >= cfg.min_area))
 
-    cell = _bins(disparity, D) * W + torch.arange(W, device=dev)[None, :]
-    moving = (valid & roi & ~ground & strong.reshape(-1)[cell]
-              & moving_comp[lbl[cell]]
+    cell = _flat(_bins(disparity, D) * W
+                 + torch.arange(W, device=dev)[None, :])
+    moving = (valid & roi & ~ground
+              & torch.gather(_flat(strong), -1, cell).reshape(valid.shape)
+              & torch.gather(moving_comp, -1, comp_of(cell)).reshape(
+                  valid.shape)
               & (disparity > cfg.min_disparity_raw))
     return UVResult(moving_mask=moving, pitch=pitch, horizon_row=b,
                     ground_mask=ground, u_disparity=sigmoid_adjust(ud, cfg),

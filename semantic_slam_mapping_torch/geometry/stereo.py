@@ -14,10 +14,10 @@ from semantic_slam_mapping_torch.geometry.camera import Intrinsics, pixel_grid
 
 
 class PointImage(NamedTuple):
-    xyz: torch.Tensor        # (H, W, 3) camera-frame points
-    disparity: torch.Tensor  # (H, W)
-    valid: torch.Tensor      # (H, W) disparity valid
-    roi: torch.Tensor        # (H, W) inside the 3D region of interest
+    xyz: torch.Tensor        # (..., H, W, 3) camera-frame points
+    disparity: torch.Tensor  # (..., H, W)
+    valid: torch.Tensor      # (..., H, W) disparity valid
+    roi: torch.Tensor        # (..., H, W) inside the 3D region of interest
 
 
 def _roi(valid, x, y, z, cam: CameraConfig) -> torch.Tensor:
@@ -28,8 +28,9 @@ def _roi(valid, x, y, z, cam: CameraConfig) -> torch.Tensor:
 def triangulate_image(K: Intrinsics, disparity: torch.Tensor,
                       cam: CameraConfig,
                       min_disparity: float = 0.5) -> PointImage:
-    """Dense disparity -> camera-frame points with ROI classification."""
-    H, W = disparity.shape
+    """Dense disparity (..., H, W) -> camera-frame points with ROI
+    classification."""
+    H, W = disparity.shape[-2:]
     valid = disparity > min_disparity
     z = K.bf / torch.where(valid, disparity, torch.ones_like(disparity))
     uv = pixel_grid(H, W, dtype=disparity.dtype, device=disparity.device)
@@ -42,9 +43,11 @@ def triangulate_image(K: Intrinsics, disparity: torch.Tensor,
 
 def correct_pitch(points: PointImage, pitch: torch.Tensor,
                   cam: CameraConfig) -> PointImage:
-    """Rotate Y/Z about the camera x-axis by the ground pitch, then
-    re-classify the ROI."""
-    c, s = torch.cos(pitch), torch.sin(pitch)
+    """Rotate Y/Z about the camera x-axis by the ground pitch (one per
+    frame: a scalar, or (B,) for (B, H, W) points), then re-classify the
+    ROI."""
+    c = torch.cos(pitch)[..., None, None]
+    s = torch.sin(pitch)[..., None, None]
     x, y, z = points.xyz.unbind(-1)
     y2 = c * y - s * z
     z2 = s * y + c * z

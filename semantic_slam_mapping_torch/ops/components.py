@@ -43,13 +43,14 @@ def _segmented_run_min(lbl: torch.Tensor, start_fwd: torch.Tensor,
 
 def connected_components(valid: torch.Tensor, same, sweeps: int = 16,
                          jumps: int = 1) -> torch.Tensor:
-    """4-connected labelling. ``same`` = (up, down, left, right): whether
-    each pixel is connected to that neighbour. Returns (H, W) int64 labels
-    equal to the minimum flat pixel index of each component; invalid pixels
+    """4-connected labelling of (..., H, W) grids, each frame on its own.
+    ``same`` = (up, down, left, right): whether each pixel is connected to
+    that neighbour. Returns (..., H, W) int64 labels equal to the minimum
+    flat pixel index of each component within its frame; invalid pixels
     keep their own index."""
-    H, W = valid.shape
+    H, W = valid.shape[-2:]
     dev = valid.device
-    idx = torch.arange(H * W, device=dev).reshape(H, W)
+    idx = torch.arange(H * W, device=dev).reshape(H, W).expand(valid.shape)
     up_ok, dn_ok, lf_ok, rt_ok = same
     row = torch.arange(H, device=dev)[:, None]
     col = torch.arange(W, device=dev)[None, :]
@@ -60,10 +61,12 @@ def connected_components(valid: torch.Tensor, same, sweeps: int = 16,
 
     lbl = idx
     for _ in range(sweeps):
-        lbl = _segmented_run_min(lbl, ~lf_ok, ~rt_ok, dim=1)
-        lbl = _segmented_run_min(lbl, ~up_ok, ~dn_ok, dim=0)
-        flat = lbl.reshape(-1)
+        lbl = _segmented_run_min(lbl, ~lf_ok, ~rt_ok, dim=-1)
+        lbl = _segmented_run_min(lbl, ~up_ok, ~dn_ok, dim=-2)
+        # pointer jumps within each frame: a label is a flat index of its
+        # own frame
+        flat = lbl.reshape(-1, H * W)
         for _ in range(jumps):
-            flat = flat[flat]
-        lbl = flat.reshape(H, W)
+            flat = torch.gather(flat, 1, flat)
+        lbl = flat.reshape(valid.shape)
     return lbl

@@ -18,8 +18,8 @@ from semantic_slam_mapping_torch.ops import image as im
 
 
 class Keypoints(NamedTuple):
-    """(K, 2) [x, y] coords, (K,) scores, (K,) validity; invalid slots hold
-    (0, 0)."""
+    """(..., K, 2) [x, y] coords, (..., K) scores, (..., K) validity;
+    invalid slots hold (0, 0)."""
 
     xy: torch.Tensor
     score: torch.Tensor
@@ -96,20 +96,22 @@ def fast_response(img: torch.Tensor, threshold: float,
 
 
 def local_max_mask(response: torch.Tensor, size: int = 3) -> torch.Tensor:
-    """True where the response is positive and the maximum of its
-    size x size window."""
-    pooled = F.max_pool2d(response[None, None], size, stride=1,
-                          padding=size // 2)[0, 0]
+    """True where the response (..., H, W) is positive and the maximum of
+    its size x size window."""
+    H, W = response.shape[-2:]
+    pooled = F.max_pool2d(response.reshape(-1, 1, H, W), size, stride=1,
+                          padding=size // 2).reshape(response.shape)
     return (response >= pooled) & (response > 0)
 
 
 def select_keypoints(response: torch.Tensor, max_corners: int,
                      quality_level: float = 0.01, cell_size: int = 16,
                      border: int = 16) -> Keypoints:
-    """Response map -> fixed-budget keypoints: 3x3 NMS, border cut, one
-    winner per grid cell, quality gate against the global maximum, then the
-    top ``max_corners`` by score."""
-    H, W = response.shape
+    """Response map (..., H, W) -> fixed-budget keypoints per frame: 3x3
+    NMS, border cut, one winner per grid cell, quality gate against the
+    frame's maximum, then the frame's top ``max_corners`` by score."""
+    H, W = response.shape[-2:]
+    batch = response.shape[:-2]
     dev = response.device
     r = torch.where(local_max_mask(response), response, 0.0)
     ys = torch.arange(H, device=dev)[:, None]
@@ -120,25 +122,30 @@ def select_keypoints(response: torch.Tensor, max_corners: int,
 
     ch, cw = -(-H // cell_size), -(-W // cell_size)
     padded = F.pad(r, (0, cw * cell_size - W, 0, ch * cell_size - H))
-    cells = padded.reshape(ch, cell_size, cw, cell_size).permute(0, 2, 1, 3)
-    flat_cells = cells.reshape(ch, cw, cell_size * cell_size)
+    cells = padded.reshape(batch + (ch, cell_size, cw, cell_size)
+                           ).transpose(-3, -2)
+    flat_cells = cells.reshape(batch + (ch, cw, cell_size * cell_size))
     # one-hot of the first maximum (F.one_hot would read its input back
     # to the host to validate it)
     lanes = torch.arange(cell_size * cell_size, device=dev)
     winner = (lanes == torch.argmax(flat_cells, dim=-1)[..., None]).to(
         r.dtype)
-    kept = (flat_cells * winner).reshape(ch, cw, cell_size, cell_size)
-    r = kept.permute(0, 2, 1, 3).reshape(
-        ch * cell_size, cw * cell_size)[:H, :W]
+    kept = (flat_cells * winner).reshape(
+        batch + (ch, cw, cell_size, cell_size))
+    r = kept.transpose(-3, -2).reshape(
+        batch + (ch * cell_size, cw * cell_size))[..., :H, :W]
 
-    r = torch.where(r >= quality_level * torch.max(r), r, 0.0)
+    r = torch.where(r >= quality_level * r.amax(dim=(-2, -1), keepdim=True),
+                    r, 0.0)
 
-    # stable descending sort: equal scores keep index order (lax.top_k)
-    score, idx = torch.sort(r.reshape(-1), descending=True, stable=True)
-    score, idx = score[:max_corners], idx[:max_corners]
+    # stable descending sort of each frame: equal scores keep index order
+    # (lax.top_k)
+    score, idx = torch.sort(r.reshape(batch + (H * W,)), descending=True,
+                            stable=True)
+    score, idx = score[..., :max_corners], idx[..., :max_corners]
     valid = score > 0
     xy = torch.stack([(idx % W).float(), (idx // W).float()], dim=-1)
-    xy = torch.where(valid[:, None], xy, 0.0)
+    xy = torch.where(valid[..., None], xy, 0.0)
     return Keypoints(xy=xy, score=torch.where(valid, score, 0.0),
                      valid=valid)
 

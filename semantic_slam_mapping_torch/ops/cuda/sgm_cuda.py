@@ -11,11 +11,14 @@ the checkout, keyed by a hash of the source and flags, and loaded with
 :func:`sgm_aggregate4` returns, in the volume's dtype, the Pallas kernel's
 contract ``r(r(vf) + r(vb)) + r(r(hf) + r(hb))``: each directional path
 (carried in float32) rounded to the volume's dtype, and each sum taken in
-float32 and rounded again. For a CUDA tensor it launches the kernel twice
-(the vertical pair into a scratch sum, then the horizontal pair added to
-it) and counts each launch in ``sgm_aggregate4.launches``. For a CPU tensor
-it runs :func:`sgm_aggregate4_plain`, the same recurrence as a loop over
-the scan axis; it never falls back to it for a CUDA tensor.
+float32 and rounded again. It takes one (H, W, D) volume or a batch
+(B, H, W, D) of them; the frames' lines are independent, so a batch gives
+what each frame gives alone, to the bit. For a CUDA tensor it launches the
+kernel twice whatever B is (the vertical pairs of every frame into a
+scratch sum, then the horizontal pairs added to it) and counts each launch
+in ``sgm_aggregate4.launches``. For a CPU tensor it runs
+:func:`sgm_aggregate4_plain`, the same recurrence as a loop over the scan
+axis; it never falls back to it for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -71,9 +74,14 @@ def _library() -> ctypes.CDLL:
     fn = lib.sgm_aggregate_pass
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    plan = lib.sgm_aggregate_plan
+    plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
     return lib
 
 
@@ -81,21 +89,38 @@ def sgm_pass(vol: torch.Tensor, dest: torch.Tensor, D: int, p1: float,
              p2: float, horizontal: bool,
              addend: torch.Tensor | None = None) -> None:
     """One launch of the kernel on the current stream: the vertical
-    (``horizontal=False``) or horizontal pair of directions of a padded
-    (H, W, Dp) volume into ``dest``, ``r(f + b)`` or, with ``addend``,
-    ``r(addend + r(f + b))``. Counts the launch in
+    (``horizontal=False``) or horizontal pairs of directions of a padded
+    (H, W, Dp) volume or (B, H, W, Dp) batch into ``dest``, ``r(f + b)``
+    or, with ``addend``, ``r(addend + r(f + b))``. Counts the launch in
     ``sgm_aggregate4.launches``."""
-    H, W, Dp = vol.shape
+    B, H, W, Dp = (1,) * (4 - vol.dim()) + tuple(vol.shape)
     with torch.cuda.device(vol.device):
         err = _library().sgm_aggregate_pass(
             vol.data_ptr(), None if addend is None else addend.data_ptr(),
-            dest.data_ptr(), H, W, D, Dp, float(p1), float(p2),
+            dest.data_ptr(), B, H, W, D, Dp, float(p1), float(p2),
             int(vol.dtype == torch.bfloat16), int(horizontal),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sgm_aggregate_pass launch failed: cudaError {err}")
     sgm_aggregate4.launches += 1
+
+
+def launch_plan(shape: Tuple[int, ...], dtype: torch.dtype,
+                horizontal: bool) -> dict:
+    """What a launch on a (B, H, W, Dp) or (H, W, Dp) padded volume on the
+    current card uses: its blocks, the blocks an SM holds at once, the
+    ring depth in stages and the shared memory of a block. Launches
+    nothing."""
+    B, H, W, Dp = (1,) * (4 - len(shape)) + tuple(shape)
+    out = (ctypes.c_int * 4)()
+    err = _library().sgm_aggregate_plan(
+        B, H, W, Dp, int(dtype == torch.bfloat16), int(horizontal),
+        torch.cuda.current_device(), out)
+    if err != 0:
+        raise RuntimeError(f"sgm_aggregate_plan failed: cudaError {err}")
+    return dict(zip(("blocks", "blocks_per_sm", "stages", "smem_bytes"),
+                    out))
 
 
 def _padded(vol: torch.Tensor) -> torch.Tensor:
@@ -110,15 +135,18 @@ def _padded(vol: torch.Tensor) -> torch.Tensor:
 
 
 def sgm_aggregate4(vol: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
-    """The four-direction SGM aggregate of an (H, W, D) cost volume
-    (non-negative costs), as an (H, W, D) tensor of the volume's dtype."""
+    """The four-direction SGM aggregate of an (H, W, D) cost volume or a
+    (B, H, W, D) batch of them (non-negative costs), as a tensor of the
+    volume's shape and dtype."""
     if vol.device.type == "cpu":
         return sgm_aggregate4_plain(vol, p1, p2)
     if vol.device.type != "cuda":
         raise ValueError(f"sgm_aggregate4: unsupported device {vol.device}")
-    if vol.dim() != 3 or vol.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("sgm_aggregate4 takes an (H, W, D) float32 or "
-                         f"bfloat16 volume, got {tuple(vol.shape)} {vol.dtype}")
+    if (vol.dim() not in (3, 4)
+            or vol.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError("sgm_aggregate4 takes an (H, W, D) or (B, H, W, D) "
+                         "float32 or bfloat16 volume, got "
+                         f"{tuple(vol.shape)} {vol.dtype}")
     if not vol.is_contiguous():
         raise ValueError("sgm_aggregate4 takes a contiguous volume")
     D = vol.shape[-1]
@@ -138,7 +166,7 @@ sgm_aggregate4.launches = 0
 
 def _sgm_paths(cost: torch.Tensor, p1: float,
                p2: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward and backward path costs along axis 0 of an (S, X, D)
+    """Forward and backward path costs along axis 0 of an (S, ..., X, D)
     float32 volume (the recurrence of ``sgbm._sgm_scan_bidir``, with the
     two directions stacked in one carry)."""
     both = torch.stack([cost, cost.flip(0)], dim=1)          # (S, 2, X, D)
@@ -160,13 +188,13 @@ def _sgm_paths(cost: torch.Tensor, p1: float,
 def sgm_aggregate4_plain(vol: torch.Tensor, p1: float,
                          p2: float) -> torch.Tensor:
     """The plain PyTorch version of :func:`sgm_aggregate4`: the exact
-    recurrence in float32 on the volume and on its transpose, each path
-    rounded to the volume's dtype and summed in it in the contract's
-    order."""
+    recurrence in float32 down the columns and along the rows of each
+    (H, W, D) frame, each path rounded to the volume's dtype and summed in
+    it in the contract's order."""
     v = vol.float()
-    vf, vb = _sgm_paths(v, p1, p2)
-    hf, hb = _sgm_paths(v.transpose(0, 1), p1, p2)
+    vf, vb = _sgm_paths(v.movedim(-3, 0), p1, p2)
+    hf, hb = _sgm_paths(v.movedim(-2, 0), p1, p2)
     dt = vol.dtype
-    vert = vf.to(dt) + vb.to(dt)
-    horz = hf.to(dt) + hb.to(dt)
-    return (vert + horz.transpose(0, 1)).contiguous()
+    vert = (vf.to(dt) + vb.to(dt)).movedim(0, -3)
+    horz = (hf.to(dt) + hb.to(dt)).movedim(0, -2)
+    return (vert + horz).contiguous()

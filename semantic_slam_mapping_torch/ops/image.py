@@ -142,10 +142,24 @@ def build_pyramid(img: torch.Tensor, n_levels: int,
     return levels
 
 
+def take(img: torch.Tensor, yi: torch.Tensor,
+         xi: torch.Tensor) -> torch.Tensor:
+    """``img[..., yi, xi]`` with the indices clamped into the image, for
+    (..., H, W) images and integer index tensors whose leading dims start
+    with the images' batch dims: each frame reads its own image."""
+    H, W = img.shape[-2:]
+    nb = img.dim() - 2
+    i = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+    flat = img.reshape(img.shape[:-2] + (H * W,))
+    return torch.gather(flat, -1, i.reshape(i.shape[:nb] + (-1,))).reshape(
+        i.shape)
+
+
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
                     pad_value: float = 0.0) -> torch.Tensor:
-    """Sample an (H, W) image at float coords xy (..., 2) [x, y] with
-    clamped bilinear taps; points outside the image get ``pad_value``."""
+    """Sample (..., H, W) images at float coords xy (..., 2) [x, y] with
+    clamped bilinear taps (xy's leading dims start with the images' batch
+    dims); points outside the image get ``pad_value``."""
     H, W = img.shape[-2:]
     x, y = xy[..., 0], xy[..., 1]
     x0, y0 = torch.floor(x), torch.floor(y)
@@ -153,7 +167,7 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
     x0i, y0i = x0.long(), y0.long()
 
     def at(yi, xi):
-        return img[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        return take(img, yi, xi)
 
     v = ((1 - ay) * ((1 - ax) * at(y0i, x0i) + ax * at(y0i, x0i + 1))
          + ay * ((1 - ax) * at(y0i + 1, x0i) + ax * at(y0i + 1, x0i + 1)))
@@ -184,39 +198,49 @@ def erode(img: torch.Tensor, size: int = 3,
 
 
 def _histogram(x: torch.Tensor, n_bins: int, lo, hi) -> torch.Tensor:
-    """Counts of ``x`` in ``n_bins`` equal bins over [lo, hi], the last bin
-    closed (numpy's ``histogram``). ``lo``/``hi`` may be 0-d tensors."""
-    x = x.reshape(-1).float()
-    lo = torch.as_tensor(lo, dtype=torch.float32, device=x.device)
-    hi = torch.as_tensor(hi, dtype=torch.float32, device=x.device)
+    """Counts of ``x`` (..., H, W) in ``n_bins`` equal bins over [lo, hi],
+    the last bin closed (numpy's ``histogram``), per frame: (..., n_bins).
+    ``lo``/``hi`` may be tensors of the batch shape."""
+    batch = x.shape[:-2]
+    x = x.reshape(batch + (-1,)).float()
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=x.device)[..., None]
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=x.device)[..., None]
     step = torch.arange(n_bins, dtype=torch.float32,
                         device=x.device) / float(n_bins)
-    edges = torch.cat([lo * (1 - step) + hi * step, hi[None]])
-    idx = torch.bucketize(x, edges, right=True)
-    idx = torch.where(x == edges[-1], n_bins, idx)
+    edges = torch.cat([lo * (1 - step) + hi * step, hi], dim=-1)
+    edges = edges.expand(batch + edges.shape[-1:]).contiguous()
+    idx = torch.searchsorted(edges, x, right=True)
+    idx = torch.where(x == edges[..., -1:], n_bins, idx)
     inside = (idx >= 1) & (idx <= n_bins)
-    counts = torch.zeros(n_bins + 2, dtype=torch.float32, device=x.device)
-    counts.index_add_(0, idx, inside.float())
-    return counts[1:n_bins + 1]
+    counts = torch.zeros(batch + (n_bins + 2,), dtype=torch.float32,
+                         device=x.device)
+    counts.scatter_add_(-1, idx, inside.float())
+    return counts[..., 1:n_bins + 1]
 
 
 def otsu_threshold(img: torch.Tensor, n_bins: int = 256,
                    value_range=(0.0, 1.0)) -> torch.Tensor:
-    """Otsu's threshold; a plateau of maxima yields its midpoint."""
+    """Otsu's threshold of each (H, W) frame of ``img`` (..., H, W); a
+    plateau of maxima yields its midpoint. The range's ends may be tensors
+    of the batch shape."""
     lo, hi = value_range
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=img.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=img.device)
     hist = _histogram(img, n_bins, lo, hi)
-    centers = lo + (torch.arange(n_bins, dtype=torch.float32,
-                                 device=hist.device) + 0.5) * (hi - lo) / n_bins
-    total = torch.sum(hist)
-    w0 = torch.cumsum(hist, 0)
+    centers = lo[..., None] + (torch.arange(
+        n_bins, dtype=torch.float32, device=hist.device) + 0.5) * (
+            hi - lo)[..., None] / n_bins
+    total = torch.sum(hist, -1, keepdim=True)
+    w0 = torch.cumsum(hist, -1)
     w1 = total - w0
-    cm = torch.cumsum(hist * centers, 0)
+    cm = torch.cumsum(hist * centers, -1)
     m0 = cm / torch.clamp(w0, min=1e-9)
-    m1 = (torch.sum(hist * centers) - cm) / torch.clamp(w1, min=1e-9)
+    m1 = (torch.sum(hist * centers, -1, keepdim=True) - cm) / torch.clamp(
+        w1, min=1e-9)
     between = torch.where((w0 > 0) & (w1 > 0), w0 * w1 * (m0 - m1) ** 2,
                           torch.full_like(w0, -1.0))
-    at_max = between >= torch.max(between) * (1.0 - 1e-6)
+    at_max = between >= between.amax(-1, keepdim=True) * (1.0 - 1e-6)
     idx_vals = torch.arange(n_bins, dtype=torch.float32, device=hist.device)
-    mid = torch.sum(torch.where(at_max, idx_vals, 0.0)) / torch.clamp(
-        torch.sum(at_max), min=1)
+    mid = torch.sum(torch.where(at_max, idx_vals, 0.0), -1) / torch.clamp(
+        torch.sum(at_max, -1), min=1)
     return lo + (mid + 0.5) * (hi - lo) / n_bins

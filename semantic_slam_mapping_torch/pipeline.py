@@ -40,6 +40,11 @@ frame primes a pair buffer, a keyframe has no right image, there is no
 moving-object mask, and a loop candidate is verified by the reverse PnP
 alone (no quad-match re-measure without a stereo pair).
 
+Throughput mode (``process_window``) runs a window of B stereo pairs as one
+batched frontend pass (``tracker.track_frames_batched``), then the host
+work above per frame in order; a LOST frame inside the window is
+relocalised and the later frames of the window move with it.
+
 Deferred results are copied to pinned host memory behind a CUDA event as
 soon as they are queued, and read at the next epoch, so edges land one
 epoch late exactly as in the JAX package. The pose graph and the keyframe
@@ -551,6 +556,103 @@ class SlamSystem:
         self._stream(frames, depth, self._dispatch_frame_rgbd)
 
     # ------------------------------------------------------------------
+    def _upload_window(self, frames) -> torch.Tensor:
+        """(B+1, H, W) frames to the device as float32, as they are (the
+        JAX package's ``process_window`` takes them so, unquantised)."""
+        if isinstance(frames, torch.Tensor):
+            return frames.to(self.device, torch.float32)
+        t = torch.from_numpy(np.ascontiguousarray(frames, np.float32))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _window_picks(self, n_valid: torch.Tensor) -> Optional[torch.Tensor]:
+        """The RANSAC samples of a window's pairs, given their (B,) counts
+        of valid matches: None draws them from the generator. A test
+        replays the JAX package's keys through it, as through
+        :meth:`_loop_vo`."""
+        return None
+
+    def process_window(self, lefts, rights, colors=None, semantics=None
+                       ) -> tracker.FrameResult:
+        """Throughput mode: feed B+1 consecutive frames ((B+1, H, W) each,
+        grey in [0, 1]); the B pairs (i-1, i) run as one batched frontend
+        pass on the device, then the keyframe and backend work runs per
+        frame on the host. Consecutive windows overlap by one frame: the
+        next window starts with this one's last (``lefts[4:9]`` after
+        ``lefts[:5]``). ``colors`` and ``semantics``, when given, hold the
+        B+1 frames' color images and labels for the map. Returns the
+        batched FrameResult (fields with a leading B)."""
+        lefts = self._upload_window(lefts)
+        rights = self._upload_window(rights)
+        B = lefts.shape[0] - 1
+        if self._prev is None:
+            self.trajectory.append(np.eye(4))
+            self.frame_count += 1
+            self._append_anchor(np.eye(4))
+        with self.timer.stage("window"):
+            self.state, out = tracker.track_frames_batched(
+                self.state, lefts, rights, self.K, self.generator, self.cfg,
+                picks=self._window_picks)
+        self._prev = (lefts[-1], rights[-1])
+        self._last_disparity = out.disparity[-1]
+        self._dispatched += B
+        self._processed += B
+        with self.timer.stage("frontend"):
+            poses = out.pose.detach().to("cpu", torch.float64).numpy()
+            statuses, success, n_matches, n_inliers, n_moving = torch.stack([
+                out.status.long(), out.vo_success.long(),
+                out.n_matches.long(), out.n_inliers.long(),
+                out.moving_mask.sum(dim=(-2, -1)).long()]).tolist()
+        # a frame relocalised inside the window corrects the later ones,
+        # which were integrated from its lost pose
+        C = np.eye(4)
+        corrected = False
+        for i in range(B):
+            pose_i = (C @ poses[i]) if corrected else poses[i]
+            self.trajectory.append(pose_i)
+            self._append_anchor(pose_i)
+            self.frame_log.append(FrameLog(statuses[i], bool(success[i]),
+                                           n_matches[i], n_inliers[i],
+                                           n_moving[i]))
+            self.frame_count += 1
+            if statuses[i] == tracker.LOST and self.ref_frames:
+                rec = self._relocalize(lefts[i + 1], out.disparity[i],
+                                       pose_i)
+                if rec is None:
+                    ref = self.ref_frames[-1]
+                    new_pose = ref.pose.astype(np.float64)
+                    log.info("lost: re-seeded at keyframe %d pose",
+                             ref.kf_id)
+                else:
+                    new_pose, ref = rec
+                    log.info("relocalized against keyframe %d", ref.kf_id)
+                self.n_recoveries += 1
+                self._rewrite_last(new_pose, anchor_kf=ref)
+                self.ref_frames.clear()
+                self.ref_frames.append(ref)
+                C = new_pose @ np.linalg.inv(poses[i])
+                corrected = True
+                pose_i = new_pose
+            single = tracker.FrameResult(
+                pose=_upload(pose_i.astype(np.float32), self.device),
+                T_delta=out.T_delta[i], status=out.status[i],
+                n_matches=out.n_matches[i], n_inliers=out.n_inliers[i],
+                moving_mask=out.moving_mask[i], disparity=out.disparity[i],
+                matches=vo.QuadMatches(*(x[i] for x in out.matches)),
+                vo_success=out.vo_success[i], pitch=out.pitch[i])
+            self.last_result = single
+            if self._keyframe_due(pose_i):
+                self._insert_keyframe(
+                    single, pose_i, lefts[i + 1], rights[i + 1],
+                    colors[i + 1] if colors is not None else None,
+                    semantics[i + 1] if semantics is not None else None)
+        if corrected:
+            # the live tracker state moves by the window's correction
+            self._adjust_state(C @ self._state_pose())
+        return out
+
+    # ------------------------------------------------------------------
     def _adjust_state(self, new_pose: np.ndarray):
         """Rewrite the tracker's pose (status OK, lost count 0); the RGB-D
         tracker also moves its world-frame reference points."""
@@ -746,11 +848,21 @@ class SlamSystem:
         """Dispatch the batched edge work and harvest it at once."""
         return self._dispatch_edges(refs, kf, is_loop)()
 
-    def _loop_vo(self, m: vo.QuadMatches, candidate: int) -> vo.VoResult:
-        """The loop re-measure's RANSAC + GN motion for one candidate (the
-        index of the candidate in its dispatch: a test replays the JAX
-        package's samples through it)."""
-        return vo.estimate_motion(m, self.K, self.generator, self.cfg.vo)
+    def _loop_vo(self, m: vo.QuadMatches) -> vo.VoResult:
+        """The loop re-measure's RANSAC + GN motion for a batch of
+        candidates ((n, N) matches, one row a candidate), solved in one
+        batched call; each candidate's samples are drawn from the generator
+        in turn. Pairwise: each candidate's pose has the bits of its own
+        unbatched solve, since a loop edge takes it as its measurement and
+        an epoch's later PnP gates can turn on its last bit. A test replays
+        the JAX package's samples through it."""
+        n_valid = m.valid.sum(dim=-1)
+        picks = torch.stack([
+            vo._distinct3(self.generator, n_valid[c],
+                          self.cfg.vo.ransac_iters)
+            for c in range(n_valid.shape[0])])
+        return vo.estimate_motion(m, self.K, None, self.cfg.vo, picks=picks,
+                                  pairwise=True)
 
     def _dispatch_edges(self, refs, kf: Keyframe, is_loop: bool):
         """Queue the edge work against up to nearby_keyframes reference
@@ -813,17 +925,19 @@ class SlamSystem:
                 priors = torch.stack([self.K.fx * Xp[:, 0] / z_,
                                       self.K.fy * Xp[:, 1] / z_], dim=-1)
                 priors = torch.where(infos.success[:, None], priors, 0.0)
-                # the real candidates only: a padding slot's result is
-                # never read
-                res = [self._loop_vo(quadmatch.quad_match(
-                    cur_left=kf_left, cur_right=kf_right,
-                    prev_left=left_r[c], prev_right=right_r[c],
+                # the real candidates only, as one batch: a padding slot's
+                # result is never read
+                res = self._loop_vo(quadmatch.quad_match(
+                    cur_left=kf_left.expand(n, -1, -1),
+                    cur_right=kf_right.expand(n, -1, -1),
+                    prev_left=torch.stack(left_r),
+                    prev_right=torch.stack(right_r),
                     qcfg=cfg.quadmatch, gcfg=cfg.gftt, kcfg=cfg.klt,
-                    flow_prior=priors[c]), c) for c in range(n)]
-                viso_success = torch.stack(
-                    [r.success for r in res] + [res[0].success] * (nb - n))
-                viso_T = torch.stack(
-                    [r.T_delta for r in res] + [res[0].T_delta] * (nb - n))
+                    flow_prior=priors[:n]))
+                viso_success = torch.cat(
+                    [res.success, res.success[:1].expand(nb - n)])
+                viso_T = torch.cat(
+                    [res.T_delta, res.T_delta[:1].expand(nb - n, 4, 4)])
             with self.timer.stage("edges/revpnp"):
                 # the reverse PnP (kf's 3D against each candidate's 2D),
                 # started from the forward solution's inverse

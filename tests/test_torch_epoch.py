@@ -164,15 +164,17 @@ def test_epoch_matches_jax(scene, monkeypatch):
     monkeypatch.setattr(tpnp, "solve_pnp_lazy", replaying_pnp)
     replayed = []
 
-    def replaying_loop_vo(m, candidate):
-        if candidate == 0:
-            replayed.append(len(replayed))
-        keys = jax.random.split(loop_keys[replayed[-1]][candidate],
-                                CFG.vo.ransac_iters)
-        picks = jax.vmap(jvo._distinct3, in_axes=(0, None))(
-            keys, jnp.int32(int(m.valid.sum())))
+    def replaying_loop_vo(m):
+        # one batched call a dispatch: (n, N) matches, one row a candidate
+        keys = loop_keys[len(replayed)]
+        replayed.append(len(replayed))
+        picks = [jax.vmap(jvo._distinct3, in_axes=(0, None))(
+            jax.random.split(keys[c], CFG.vo.ransac_iters),
+            jnp.int32(int(m.valid[c].sum())))
+            for c in range(m.valid.shape[0])]
         return tvo.estimate_motion(m, tsys.K, None, TCFG.vo,
-                                   picks=torch.from_numpy(np.array(picks)))
+                                   picks=torch.from_numpy(np.stack(picks)),
+                                   pairwise=True)
 
     monkeypatch.setattr(tsys, "_loop_vo", replaying_loop_vo)
 

@@ -67,8 +67,17 @@ def test_plain_aggregate_matches_jax():
     assert sgm_cuda.sgm_aggregate4(cost.bfloat16(), 5.0, 20.0).dtype == \
         torch.bfloat16
 
-    with pytest.raises(NotImplementedError):
-        tsgbm._aggregate(torch.zeros((4, 4, 8)), TSgbm(full_dp=True))
+    # full_dp adds the four diagonal paths, as the JAX package's exact
+    # path does (its fullDP is ported now; it raised before)
+    cost = rng.uniform(0, 100, (11, 13, 8)).astype(np.float32)
+    fcfg = TSgbm(full_dp=True, cost_dtype="float32", p1=8 * 25, p2=32 * 25)
+    p1, p2 = float(fcfg.p1) / 16.0, float(fcfg.p2) / 16.0
+    ref = _jax_aggregate4(cost, p1, p2) + np.asarray(
+        jsgbm._diag_paths_full(jnp.asarray(cost), p1, p2))
+    out = tsgbm._aggregate(torch.from_numpy(cost), fcfg)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    with pytest.raises(ValueError):
+        tsgbm._aggregate(torch.from_numpy(cost), TSgbm(num_directions=6))
 
 
 @pytest.fixture(scope="module")
