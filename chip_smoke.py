@@ -59,7 +59,7 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    with the default configuration (80 disparities, 11x11 window, bfloat16
    cost volume, 512 features, 200 RANSAC hypotheses), no vocabulary, and
    online SegNet at full width (VGG16, bfloat16, 384x480 input) with
-   weights drawn from seed 0. Every kernel launch count is zeroed just
+   the weights the ``train`` phase trained. Every kernel launch count is zeroed just
    before and read just after; each kernel must have been launched, and
    every SGM aggregate of the run must be bfloat16. Every tracked frame
    must have a VO success, the trajectory's ATE RMSE against the rendered
@@ -115,6 +115,21 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    8-direction (``full_dp``) aggregate of one volume on the card to the
    CPU's exactly, and batched SGBM on the card (4 and 8 directions) to
    per-frame SGBM on the card exactly.
+13. ``train`` (run after ``rgbd``, before ``slice``: the slice, segnet and
+   parity phases label with the network it trains): SegNet training, the
+   recipe of the JAX package's full-width checkpoint: ``cli train-segnet --size 192 --width 1.0 --steps 600
+   --batch 4`` as a subprocess on the card, which must reach a holdout
+   mIoU of 0.85 and a held-out world mIoU of 0.80 (the JAX recipe reached
+   0.953 and 0.928); prints both, the per-class recall, the wall and
+   training seconds and steps/s. The trained network in float32 labels
+   the held-out world batch on the card and the CPU (at most 0.1% of the
+   pixels may differ) and, through ``SlamSystem._run_segnet``, a
+   KITTI-size frame of the slice phase's street (its mIoU against the
+   renderer's labels is printed). One float32 full-width train step from
+   the same weights and batch is held card against CPU (tolerances in
+   ``train_step_parity``), and one bfloat16 train step is timed at (4,
+   192, 192, 3) and at the serving size (4, 384, 480, 3): CUDA events,
+   launches, peak memory, share of the bf16 peak and the bound.
 
 ``python3 chip_smoke.py --phases kernels,window`` runs the named phases
 only (after ``device`` and ``build``) and prints no result line: a quick
@@ -145,6 +160,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from semantic_slam_mapping_torch import cli as cli_mod
 from semantic_slam_mapping_torch import pipeline
 from semantic_slam_mapping_torch.backend import looper, pnp
 from semantic_slam_mapping_torch.backend import pose_graph as pg
@@ -225,6 +241,13 @@ SGM_VARIANTS = {
 # pads, the widest D
 SGM_SMALL = ((37, 24, 16), (24, 37, 16), (1, 7, 13), (33, 20, 13),
              (9, 40, 96))
+# the train phase: the recipe of the JAX package's full-width checkpoint
+# (segnet_w1.pkl's meta: 600 steps at 192 px, batch 4), the least mIoUs the
+# port's run must reach (holdout, held-out world), and what the JAX recipe
+# reached, read from that pickle's meta (quality numbers, not times)
+TRAIN_SIZE, TRAIN_STEPS, TRAIN_BATCH = 192, 600, 4
+TRAIN_MIN_MIOU = (0.85, 0.80)
+JAX_W1_MIOU = (0.9532, 0.9280)
 # the window phase: 33 frames as 4 windows of 8 pairs, at the cli
 # phase's size
 WINDOW_B = 8
@@ -838,30 +861,42 @@ def phase_rgbd(card: str, device: str = "cuda", height: int = TUM_HW[0],
     return fields
 
 
-def render_frames(cfg: SlamConfig):
+def render_frames(cfg: SlamConfig, device: str = "cuda"):
     K = Intrinsics.from_config(cfg.camera)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     world = synthetic.make_world(gen, n_boxes=14, with_moving_box=True,
-                                 device="cuda")
-    poses = synthetic.straight_trajectory(N_FRAMES, speed=0.8, device="cuda")
+                                 device=device)
+    poses = synthetic.straight_trajectory(N_FRAMES, speed=0.8, device=device)
     seq = synthetic.render_sequence(K, world, poses, H, W)
     # frames reach the system from the host, as a dataset reader gives them
     frames = list(zip(seq["left"].cpu().numpy(), seq["right"].cpu().numpy()))
     return (frames, seq["poses"].cpu().numpy().astype(np.float64),
-            seq["moving"])
+            seq["moving"], seq["semantic"])
 
 
-def segnet_config() -> SlamConfig:
-    """The default configuration with online SegNet (full width, seeded
-    weights)."""
+def segnet_config(weights: Path) -> SlamConfig:
+    """The default configuration with online SegNet: the full-width network
+    the train phase trained (a pickle at ``weights``). A seeded random
+    network drawn as Flax draws it is no labeller: its activations halve
+    in variance at each of its 26 ReLUs, so its logits are about 2e-6 and
+    their argmax is rounding noise."""
     cfg = SlamConfig()
-    return cfg.replace(segnet=dataclasses.replace(cfg.segnet, online=True))
+    return cfg.replace(segnet=dataclasses.replace(
+        cfg.segnet, online=True, weights=str(weights)))
 
 
-def phase_slice(card: str):
-    cfg = segnet_config()
+def segnet_as(model: segnet_mod.SegNet, dtype: torch.dtype
+              ) -> segnet_mod.SegNet:
+    """The same network working in ``dtype``, on the CPU, in eval mode."""
+    out = segnet_mod.SegNet(model.num_classes, dtype, model.width_mult)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def phase_slice(card: str, weights: Path):
+    cfg = segnet_config(weights)
     t = time.time()
-    frames, gt, gt_moving = render_frames(cfg)
+    frames, gt, gt_moving, _ = render_frames(cfg)
     torch.cuda.synchronize()
     emit("slice", step="rendered", frames=len(frames), shape=[H, W],
          seconds=round(time.time() - t, 2))
@@ -1354,7 +1389,7 @@ def final_graph(system: SlamSystem):
 
 
 def phase_segnet(slice_system: SlamSystem, frames, card: str) -> dict:
-    """The full-width SegNet (bfloat16, the slice's seeded weights) alone
+    """The full-width SegNet (bfloat16, the slice's trained weights) alone
     on a (1, 384, 480, 3) input, and the online labelling of one KITTI-size
     keyframe (``_run_segnet``: resize, network, argmax, nearest resize
     back), by CUDA events, median of 15; launches per call by the
@@ -1566,15 +1601,16 @@ class Parity:
     """Card-against-CPU checks: each records its error and tolerance and
     raises on a miss."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "parity"):
         self.rows = {}
+        self.phase = phase
 
     def check(self, name: str, error: float, tolerance: float,
               **extra) -> None:
         ok = bool(error <= tolerance)
         self.rows[name] = {"error": error, "tolerance": tolerance, "ok": ok,
                            **extra}
-        emit("parity", check=name, error=error, tolerance=tolerance, ok=ok,
+        emit(self.phase, check=name, error=error, tolerance=tolerance, ok=ok,
              **extra)
         if not ok:
             raise AssertionError(f"parity {name}: error {error} > "
@@ -1617,7 +1653,8 @@ def sgbm_batch_parity(par: Parity, img, cfg: SlamConfig,
                   "frame: differing px", differ, 0)
 
 
-def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
+def phase_parity(frames, system: SlamSystem, weights: Path,
+                 card_dev: str = "cuda") -> None:
     """The same inputs through the card and the host CPU. Tolerances are
     stated a priori: float rounding may differ between the devices (fused
     multiply-adds, reduction orders), so each check allows what that
@@ -1756,21 +1793,20 @@ def phase_parity(frames, system: SlamSystem, card_dev: str = "cuda") -> None:
         (pools[card_dev][1].cpu() != pools["cpu"][1]).sum()), 0,
         tied_window_share=float(tied.float().mean()))
 
-    segnet_parity(par, frames, card_dev)
+    segnet_parity(par, frames, card_dev, weights)
 
 
-def segnet_parity(par: Parity, frames, card_dev: str) -> None:
-    """SegNet on the card and the CPU with the same seeded full-width
-    weights. One bfloat16 ConvBNRelu: all but 0.5% of the outputs equal
-    and the rest within one bfloat16 ulp of the layer's largest output
-    (float32 sums in another order round a bf16 tie either way, and
-    BatchNorm and ReLU carry that ulp on). The labels of one frame through
-    ``_run_segnet``: at least 99% of the pixels agree with the network in
-    float32 (TF32 off). A random network in bfloat16 amplifies those
-    one-ulp differences over its 27 layers until its labels are rounding
-    noise (on the CPU its bf16 labels agree with its own float64 ones on
-    73% of the pixels), so its card-against-CPU agreement is printed, not
-    held."""
+def segnet_parity(par: Parity, frames, card_dev: str,
+                  weights: Path) -> None:
+    """SegNet on the card and the CPU with the same full-width weights. One
+    bfloat16 ConvBNRelu of the seeded network on random activations: all
+    but 0.5% of the outputs equal and the rest within one bfloat16 ulp of
+    the layer's largest output (float32 sums in another order round a bf16
+    tie either way, and BatchNorm and ReLU carry that ulp on). The labels
+    of one frame through ``_run_segnet`` with the network the train phase
+    trained: at least 99% of the pixels agree with the network in float32
+    (TF32 off); its bfloat16 agreement is printed, not held (bf16 one-ulp
+    differences compound over the 27 layers)."""
     gen = torch.Generator().manual_seed(5)
     model = segnet_mod.create(SegNetConfig(), torch.Generator().manual_seed(0))
     act = torch.rand((1, 96, 120, 64), generator=gen).to(torch.bfloat16)
@@ -1788,12 +1824,12 @@ def segnet_parity(par: Parity, frames, card_dev: str) -> None:
               1.0)
 
     labels = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = segnet_config()
-        cfg = cfg.replace(segnet=dataclasses.replace(cfg.segnet, dtype=dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
         for dev in (card_dev, "cpu"):
-            s = SlamSystem(cfg, device=dev)
-            labels[dtype, dev] = s._run_segnet(
+            s = SlamSystem(segnet_config(weights), device=dev)
+            s._segnet = segnet_as(s._segnet, dtype).to(dev)
+            labels[name, dev] = s._run_segnet(
                 s._upload_gray(frames[3][0])).cpu()
     agree = {d: float((labels[d, card_dev] == labels[d, "cpu"]).float()
                       .mean()) for d in ("float32", "bfloat16")}
@@ -1801,6 +1837,268 @@ def segnet_parity(par: Parity, frames, card_dev: str) -> None:
               "(share)", 1.0 - agree["float32"], 0.01,
               bf16_agreement_printed_only=agree["bfloat16"],
               classes=int(labels["float32", "cpu"].unique().numel()))
+
+
+def train_step_row(size_hw, batch: int, card: str) -> dict:
+    """One full-width bfloat16 train step (loss, backward, Adam) at
+    (batch, *size_hw, 3) on the card: CUDA events (median of 15 after 3
+    warm-ups), launches by the profiler, peak memory, and the share of the
+    bf16 peak counting 3 x the forward's operations as a step's work."""
+    cfg = SegNetConfig(input_height=size_hw[0], input_width=size_hw[1])
+    model = segnet_mod.create(cfg, torch.Generator().manual_seed(0)).cuda()
+    step = segnet_mod.make_train_step(
+        model, segnet_mod.adam(model, 3e-4),
+        class_weights=torch.ones(model.num_classes, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((batch, *size_hw, 3), generator=gen, device="cuda")
+    y = torch.randint(0, model.num_classes, (batch, *size_hw),
+                      generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(x, y), warmup=3, reps=15)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_params = sum(p.numel() for p in model.parameters())
+    ops = 3 * segnet_mod.flops(model, *size_hw) * batch
+    # the least bytes: the images and labels read once; the parameters and
+    # Adam's two moments read once and written once
+    n_bytes = x.numel() * 4 + y.numel() * 8 + n_params * 4 * 6
+    t_ops, t_bytes = ops / PEAK_BF16_S, n_bytes / PEAK_BYTES_S
+    row = dict(shape=[batch, *size_hw, 3], dtype="bfloat16", width_mult=1.0,
+               params=n_params, flops=ops, ms=ms,
+               tflop_s=ops / (ms * 1e-3) / 1e12,
+               share_of_bf16_peak=ops / (ms * 1e-3) / PEAK_BF16_S,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               launches_per_step=device_launches(lambda: step(x, y)),
+               peak_memory_mb=peak_mb, library_ms=None, card=card)
+    emit("train", step="train step", **row)
+    return row
+
+
+def train_step_parity(par: Parity, card_dev: str, size: int = 96,
+                      batch: int = 2, lr: float = 3e-4) -> None:
+    """One full-width train step from the same weights and batch on the
+    card and on the host CPU (TF32 off), held in two parts.
+
+    Float64: the loss and its gradients (``loss_fn`` in train mode, then
+    backward) on the card equal the CPU's within 1e-10 (loss, relative)
+    and 1e-8 of each gradient's norm; the new BatchNorm buffers within
+    1e-10. In float64 the rounding that Flax's fast BatchNorm variance
+    ``E[y^2] - E[y]^2`` amplifies is 1e-16, so this holds the card's
+    forward and backward to the CPU's, op for op.
+
+    Float32, the whole step (``make_train_step`` with Adam): the loss
+    within 1e-3 (relative) and the new BatchNorm buffers within 2e-3 of
+    their norm; each parameter within 2 lr of the CPU's (Adam's first step
+    is about lr times the gradient's sign, which near-zero gradients take
+    either way); the change the step made to the batch's loss (both
+    parameter sets through the CPU's loss_fn) within 40% of the CPU's and
+    of its sign; the convolution biases ahead of BatchNorm (zero in exact
+    arithmetic) under 1e-5 of their kernel's gradient. Each device's
+    float32 gradients are printed against the card's float64 ones, not
+    held, and so are the card's with cuDNN switched off and with cuDNN's
+    float32 precision set to ``ieee`` by name: the fast variance
+    amplifies a convolution's rounding (one convolution against float64
+    is printed for each device) into the gradients of the layers far from
+    the loss."""
+    cfg = SegNetConfig(dtype="float32")
+    base = segnet_mod.create(cfg, torch.Generator().manual_seed(0))
+    x, y = cli_mod.TrainBatches(size, batch, "cpu").train(0)
+    cw = torch.clamp(segnet_mod.median_frequency_weights([y], 12), max=4.0)
+    buffers = [k for k in base.state_dict()
+               if k.endswith((".bn.mean", ".bn.var"))]
+
+    def is_pre_bn_bias(k):
+        return k.startswith("blocks.") and k.endswith(".conv.bias")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp(min=1e-300))
+
+    def network(dev, dtype):
+        model = segnet_mod.SegNet(dtype=dtype)
+        model.load_state_dict(base.state_dict())
+        return model.to(dev, dtype)
+
+    def gradients(dev, dtype):
+        model = network(dev, dtype)
+        loss = segnet_mod.loss_fn(model, x.to(dev, dtype), y.to(dev),
+                                  class_weights=cw.to(dev, dtype))
+        loss.backward()
+        return (float(loss.detach()), {n: p.grad.cpu().double()
+                              for n, p in model.named_parameters()},
+                {k: v.cpu().double() for k, v in model.state_dict().items()})
+
+    def errors(a, b):
+        e = {k: rel(a[k], b[k]) for k in b if not is_pre_bn_bias(k)}
+        return dict(max=max(e.values()), median=statistics.median(
+            e.values()), worst=max(e, key=e.get))
+
+    # one convolution (the second layer's) against float64
+    w = base.blocks[1].conv.weight.detach()
+    a = torch.rand((batch, w.shape[1], size, size),
+                   generator=torch.Generator().manual_seed(1))
+    ref = torch.nn.functional.conv2d(a.double(), w.double(), padding=1)
+    conv_err = {dev: float((torch.nn.functional.conv2d(
+        a.to(dev), w.to(dev), padding=1).cpu().double() - ref).abs().max()
+        / ref.abs().max()) for dev in (card_dev, "cpu")}
+
+    f64 = {dev: gradients(dev, torch.float64) for dev in (card_dev, "cpu")}
+    f32 = {dev: gradients(dev, torch.float32) for dev in (card_dev, "cpu")}
+    # where the card's float32 gradients part from float64: the same step
+    # with cuDNN's convolutions replaced by PyTorch's own
+    with torch.backends.cudnn.flags(enabled=False):
+        f32_no_cudnn = gradients(card_dev, torch.float32)
+    # and with cuDNN's float32 precision asked for by name (the flag that
+    # replaces allow_tf32 in newer PyTorch), where this PyTorch has it
+    conv_flags = getattr(torch.backends.cudnn, "conv", None)
+    precision = getattr(conv_flags, "fp32_precision", None)
+    f32_ieee = None
+    if precision is not None:
+        conv_flags.fp32_precision = "ieee"
+        try:
+            f32_ieee = gradients(card_dev, torch.float32)
+        finally:
+            conv_flags.fp32_precision = precision
+    (l64_card, g64_card, s64_card), (l64_cpu, g64_cpu, s64_cpu) = \
+        f64[card_dev], f64["cpu"]
+
+    # the whole float32 step
+    out = {}
+    for dev in (card_dev, "cpu"):
+        model = network(dev, torch.float32)
+        step = segnet_mod.make_train_step(model, segnet_mod.adam(model, lr),
+                                          class_weights=cw.to(dev))
+        loss = float(step(x.to(dev), y.to(dev)))
+        out[dev] = (loss, {n: p.grad.cpu().double()
+                           for n, p in model.named_parameters()},
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out[card_dev], \
+        out["cpu"]
+
+    def batch_loss(state):
+        model = segnet_mod.SegNet(dtype=torch.float32)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            return float(segnet_mod.loss_fn(model, x, y, class_weights=cw))
+
+    start = batch_loss(base.state_dict())
+    moved_card, moved_cpu = batch_loss(s_card) - start, \
+        batch_loss(s_cpu) - start
+    buffer_errs = {k: rel(s_card[k], s_cpu[k]) for k in buffers}
+    worst_buffer = max(buffer_errs, key=buffer_errs.get)
+    bias_ratio = max(float(g_card[k].norm() / g_card[k.replace(
+        ".bias", ".weight")].norm()) for k in g_card if is_pre_bn_bias(k))
+    emit("train", step="train step, card against CPU",
+         shape=[batch, size, size, 3], conv_f32_err_vs_float64=conv_err,
+         f64_loss=dict(card=l64_card, cpu=l64_cpu),
+         f64_gradients_card_vs_cpu=errors(g64_card, g64_cpu),
+         f32_gradients_vs_card_f64={
+             **{dev: errors(f32[dev][1], g64_card) for dev in f32},
+             "card without cudnn": errors(f32_no_cudnn[1], g64_card),
+             "card, cudnn fp32_precision ieee": f32_ieee and errors(
+                 f32_ieee[1], g64_card)},
+         f32_gradients_card_vs_cpu=errors(g_card, g_cpu),
+         f32_loss=dict(card=l_card, cpu=l_cpu),
+         f32_moved=dict(card=moved_card, cpu=moved_cpu),
+         f32_worst_buffer=[worst_buffer, buffer_errs[worst_buffer]],
+         tf32=dict(cudnn=torch.backends.cudnn.allow_tf32,
+                   matmul=torch.backends.cuda.matmul.allow_tf32,
+                   cudnn_conv_fp32_precision=precision))
+
+    par.check("train step f64: loss (relative)",
+              abs(l64_card - l64_cpu) / abs(l64_cpu), 1e-10)
+    par.check("train step f64: gradients (largest relative)",
+              errors(g64_card, g64_cpu)["max"], 1e-8)
+    par.check("train step f64: BatchNorm buffers (largest relative)",
+              max(rel(s64_card[k], s64_cpu[k]) for k in buffers), 1e-10)
+    par.check("train step f32: loss (relative)",
+              abs(l_card - l_cpu) / abs(l_cpu), 1e-3)
+    par.check("train step f32: BatchNorm buffers (largest relative)",
+              buffer_errs[worst_buffer], 2e-3, tensor=worst_buffer)
+    par.check("train step f32: conv bias gradients ahead of BatchNorm "
+              "(relative to the kernel's)", bias_ratio, 1e-5)
+    par.check("train step f32: parameters (largest difference, in lr)",
+              max(float((s_card[k] - s_cpu[k]).abs().max())
+                  for k in g_cpu) / lr, 2.01)
+    if not moved_cpu < 0:
+        raise AssertionError(f"the CPU's train step raised its batch's loss "
+                             f"by {moved_cpu}")
+    par.check("train step f32: loss change of the step (card against CPU, "
+              "share of the CPU's)", abs(moved_card - moved_cpu)
+              / -moved_cpu, 0.4)
+
+
+def phase_train(card: str, out: Path, device: str = "cuda",
+                size: int = TRAIN_SIZE, steps: int = TRAIN_STEPS,
+                batch: int = TRAIN_BATCH, width: float = 1.0,
+                min_miou=TRAIN_MIN_MIOU) -> dict:
+    """SegNet training through the command line (its ``segnet.pkl`` in
+    ``out``, for the phases that label keyframes online), then the
+    trained network's labels on the card, the train step's cost, and a
+    train step held card against CPU."""
+    par = Parity("train")
+    res = run_cli(["train-segnet", "--size", str(size), "--width",
+                   str(width), "--steps", str(steps), "--batch", str(batch),
+                   "--out", str(out)], device, timeout=900)
+    path = Path(out) / "segnet.pkl"
+    model, meta = segnet_mod.load_checkpoint(path)
+    train_s = float(re.search(r"^trained \d+ steps in ([\d.]+) s",
+                              res["stderr"], re.M).group(1))
+    evals = [dict(step=int(m[0]), loss=float(m[1]), holdout_miou=float(
+        m[2]), heldout_world_miou=float(m[3])) for m in re.findall(
+            r"^step (\d+): loss ([\d.]+) holdout mIoU ([\d.]+) "
+            r"heldout-world mIoU ([\d.]+)$", res["stderr"], re.M)]
+    row = dict(size=size, width_mult=width, steps=steps, batch=batch,
+               seconds=res["seconds"], train_seconds=train_s,
+               steps_per_s=steps / train_s, miou=meta["miou"],
+               miou_heldout_world=meta["miou_heldout_world"],
+               per_class_recall=meta["per_class_recall_heldout_world"],
+               jax_recipe_miou=JAX_W1_MIOU, first_eval=evals[0],
+               last_eval=evals[-1], sgm_launches=res["sgm_launches"])
+    emit("train", step="train-segnet", stdout=res["stdout"].strip(), **row,
+         card=card)
+    if min_miou is not None and not (
+            meta["miou"] >= min_miou[0]
+            and meta["miou_heldout_world"] >= min_miou[1]):
+        raise AssertionError(
+            f"trained SegNet: holdout mIoU {meta['miou']}, held-out world "
+            f"mIoU {meta['miou_heldout_world']}, below {min_miou}")
+
+    # the learned labels: the held-out world batch in float32 on the card
+    # and the CPU (a learned network's logits are decisive, so the two
+    # agree but for pixels at a tie), then online on a KITTI-size frame of
+    # the slice phase's street
+    f32 = segnet_as(model, torch.float32)
+    x, y = cli_mod.TrainBatches(size, batch, device).heldout_world()
+    labels = {dev: segnet_mod.infer(copy.deepcopy(f32).to(dev),
+                                    x.to(dev)).cpu()
+              for dev in (device, "cpu")}
+    miou = {dev: float(segnet_mod.miou(lab, y.cpu(), 12))
+            for dev, lab in labels.items()}
+    par.check("learned labels f32, held-out world batch: pixels "
+              "disagreeing card against CPU (share)",
+              float((labels[device] != labels["cpu"]).float().mean()),
+              1e-3, miou_card=miou[device], miou_cpu=miou["cpu"])
+    cfg = segnet_config(path)
+    frames, _, _, semantic = render_frames(cfg, device)
+    system = SlamSystem(cfg, device=device)
+    online = system._run_segnet(system._upload_gray(frames[3][0]))
+    row["run_segnet_miou"] = float(segnet_mod.miou(
+        online, semantic[3].to(online.device), 12))
+    emit("train", step="learned labels", shape=[H, W],
+         run_segnet_miou=row["run_segnet_miou"],
+         labels=np.bincount(online.cpu().reshape(-1).numpy(),
+                            minlength=12).tolist(),
+         renderer_labels=np.bincount(semantic[3].cpu().reshape(-1).numpy(),
+                                     minlength=12).tolist(), card=card)
+
+    if device == "cuda":
+        row["step"] = [train_step_row(hw, TRAIN_BATCH, card)
+                       for hw in ((TRAIN_SIZE, TRAIN_SIZE), SEGNET_HW)]
+    train_step_parity(par, device)
+    row["weights"] = path
+    return row
 
 
 def main(argv=None) -> int:
@@ -1814,13 +2112,17 @@ def main(argv=None) -> int:
     row = phase_kernels()
     cli = phase_cli(info["card"])
     rgbd = phase_rgbd(info["card"])
-    slice_launches, frames, slice_system = phase_slice(info["card"])
-    epoch = phase_epoch(info["card"])
-    phase_segnet(slice_system, frames, info["card"])
-    phase_stages(frames)
-    phase_candidates(epoch)
-    window = phase_window(info["card"])
-    phase_parity(frames, epoch["system"])
+    with tempfile.TemporaryDirectory() as weights_dir:
+        # the network the online-SegNet phases label keyframes with
+        train = phase_train(info["card"], Path(weights_dir))
+        slice_launches, frames, slice_system = phase_slice(
+            info["card"], train["weights"])
+        epoch = phase_epoch(info["card"])
+        phase_segnet(slice_system, frames, info["card"])
+        phase_stages(frames)
+        phase_candidates(epoch)
+        window = phase_window(info["card"])
+        phase_parity(frames, epoch["system"], train["weights"])
     # the main path is the command line's slam; each path's count was
     # zeroed just before it and read just after
     row["launches"] = cli["launches"]["cli slam"]
@@ -1828,7 +2130,8 @@ def main(argv=None) -> int:
         **cli["launches"], "rgbd": rgbd["sgm_launches"],
         "slice": slice_launches[row["name"]],
         "epoch": epoch["launches"][row["name"]],
-        "window": window["launches"][row["name"]]}
+        "window": window["launches"][row["name"]],
+        "train-segnet": train["sgm_launches"]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)
@@ -1845,6 +2148,12 @@ def sgbm_parity_alone(frames) -> None:
     sgbm_batch_parity(Parity(), img, cfg, "cuda")
 
 
+def train_alone(card: str) -> None:
+    """phase_train with its pickle in a temporary directory."""
+    with tempfile.TemporaryDirectory() as weights_dir:
+        phase_train(card, Path(weights_dir))
+
+
 def run_phases(names) -> int:
     """The named phases alone, after device and build; no result line."""
     info = phase_device()
@@ -1852,6 +2161,7 @@ def run_phases(names) -> int:
     runs = {"kernels": lambda: phase_kernels(),
             "window": lambda: phase_window(info["card"]),
             "epoch": lambda: phase_epoch(info["card"]),
+            "train": lambda: train_alone(info["card"]),
             "sgbm_parity": lambda: sgbm_parity_alone(
                 render_frames(SlamConfig())[0])}
     for name in names:

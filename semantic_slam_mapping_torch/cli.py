@@ -11,6 +11,7 @@ sub-commands, arguments, defaults, printed lines and output files
   make-vocab   a BoW vocabulary from a sequence
   read-frames  a dataset reader probe
   match-orb    a consecutive-frame ORB matching probe
+  train-segnet SegNet trained on synthetic rendered views (segnet.pkl)
 
 Every command takes ``--device`` (default ``cuda``): it runs on the card
 and raises when there is none; ``--device cpu`` runs the plain PyTorch
@@ -21,8 +22,10 @@ Differences from the JAX package's ``cli.py``: ``synth`` draws its world
 from a ``torch.Generator`` seeded 0 (the JAX package draws from
 ``jax.random.PRNGKey(0)``, which torch cannot replay), so its street is
 another one; the JAX package's persistent XLA compilation cache has no
-counterpart (nothing here is compiled per shape); ``train-segnet`` is not
-ported yet; ``segnet --checkpoint`` reads the pickle with
+counterpart (nothing here is compiled per shape); ``train-segnet`` draws
+its batches from torch generators seeded as the JAX package seeds its keys
+(other batches, the same families) and has no ``--mesh`` (the multi-device
+paths are not ported); ``segnet --checkpoint`` reads the pickle with
 ``models/segnet.load_checkpoint`` (the network of the pickle's own width
 and dtype); a trajectory plot's caption is a PNG text chunk, not drawn
 (``utils/plot.py``).
@@ -454,7 +457,198 @@ def cmd_make_vocab(args):
           f"descriptors -> {out / 'vocab.npz'}")
 
 
-def main(argv=None):
+class TrainBatches:
+    """The data of ``train-segnet``, drawn as the JAX package's
+    ``cmd_train_segnet`` draws it, from ``torch.Generator``s seeded as it
+    seeds its keys: (image, label) batches of ``batch`` views rendered at
+    ``size`` (padded up to a multiple of 32) by a camera with fx = fy = 200
+    at the image centre, the grey image stacked three times.
+
+    Two training families alternate, street worlds on even steps and
+    loop-canyon views on odd steps, drawn from the generator seeded 0;
+    the class weights come from two batches of each family from the
+    generator seeded 77; the holdout batch is a street batch from 9999 and
+    the held-out world a batch of another loop family from 424242. A
+    caller may pass another object with the same four methods to
+    :func:`cmd_train_segnet` (a test replays JAX-drawn batches so). The
+    worlds and poses are drawn on the host, so a seed gives the same
+    batches on every device."""
+
+    STREET_NOISE = (0.5, 0.1, 0.5, 0.02, 0.05, 0.01)
+    LOOP_NOISE = (0.3, 0.05, 0.3, 0.01, 0.03, 0.005)
+
+    def __init__(self, size: int, batch: int, device):
+        import torch
+
+        from semantic_slam_mapping_torch.config import CameraConfig
+        from semantic_slam_mapping_torch.geometry.camera import Intrinsics
+        self.hw = -(-size // 32) * 32
+        self.batch = batch
+        self.device = device
+        self.K = Intrinsics.from_config(CameraConfig(
+            fx=200.0, fy=200.0, cx=self.hw / 2, cy=self.hw / 2))
+        self._train = torch.Generator().manual_seed(0)
+
+    def _noise(self, gen, sigma):
+        import torch
+
+        from semantic_slam_mapping_torch.geometry import se3
+        return se3.exp(torch.randn(6, generator=gen) * torch.tensor(sigma))
+
+    def _render(self, world, pose):
+        import torch
+
+        from semantic_slam_mapping_torch.io import synthetic
+        img, _, sem, _ = synthetic.render(self.K, pose.to(self.device),
+                                          world, self.hw, self.hw)
+        return torch.stack([img] * 3, -1), sem
+
+    def _stack(self, one, gen):
+        import torch
+        xs, ys = zip(*(one(gen) for _ in range(self.batch)))
+        return torch.stack(xs), torch.stack(ys)
+
+    def _street(self, gen):
+        from semantic_slam_mapping_torch.io import synthetic
+        # vehicles and pedestrians, so every class the mapper filters
+        # appears in the training data
+        world = synthetic.make_world(gen, n_boxes=10, with_moving_box=True,
+                                     n_moving=9, device=self.device)
+        return self._render(world, self._noise(gen, self.STREET_NOISE))
+
+    def _loop_view(self, gen, radius, index):
+        from semantic_slam_mapping_torch.geometry import se3
+        from semantic_slam_mapping_torch.io import synthetic
+        world = synthetic.make_loop_world(gen, n_boxes=32, radius=radius,
+                                          n_moving=6, device=self.device)
+        traj = synthetic.loop_trajectory(8, radius=radius, laps=1.0,
+                                         device="cpu")
+        pose = se3.compose(traj[index(gen)],
+                           self._noise(gen, self.LOOP_NOISE))
+        return self._render(world, pose)
+
+    def _loop(self, gen):
+        # the second training family: loop-canyon views at one of the 8
+        # poses of the ring
+        import torch
+        return self._loop_view(gen, 28.0, lambda g: int(
+            torch.randint(0, 8, (), generator=g)))
+
+    def _heldout(self, gen):
+        # the held-out family: another ring radius, the pose at index
+        # floor(th / 2 pi * 7) of an angle th uniform in [0, 2 pi)
+        import torch
+        return self._loop_view(gen, 25.0, lambda g: int(
+            float(torch.rand((), generator=g)) * 7))
+
+    def class_weight_batches(self):
+        import torch
+        gen = torch.Generator().manual_seed(77)
+        return [self._stack(f, gen)[1] for f in
+                (self._street, self._street, self._loop, self._loop)]
+
+    def holdout(self):
+        import torch
+        return self._stack(self._street, torch.Generator().manual_seed(9999))
+
+    def heldout_world(self):
+        import torch
+        return self._stack(self._heldout,
+                           torch.Generator().manual_seed(424242))
+
+    def train(self, it: int):
+        return self._stack(self._street if it % 2 == 0 else self._loop,
+                           self._train)
+
+
+def cmd_train_segnet(args, batches=None, model=None):
+    """Train SegNet on synthetic rendered (image, label) pairs, as the JAX
+    package's ``cmd_train_segnet`` does: Adam on the class-weighted
+    cross-entropy (median-frequency weights of four sample batches, capped
+    at 4), both mIoUs every 25 steps and on the last, the best checkpoint
+    by their mean kept, per-class recall on the held-out world, then
+    ``segnet.pkl`` with the JAX package's ``meta``. ``batches`` (default
+    :class:`TrainBatches`) and ``model`` (default ``segnet.create`` from a
+    generator seeded 0) let a caller supply the data and the start."""
+    import torch
+
+    from semantic_slam_mapping_torch.config import SegNetConfig
+    from semantic_slam_mapping_torch.mapping import semantics as semcls
+    from semantic_slam_mapping_torch.models import segnet
+
+    seg_cfg = SegNetConfig(input_height=args.size, input_width=args.size,
+                           width_mult=args.width)
+    if model is None:
+        model = segnet.create(seg_cfg, torch.Generator().manual_seed(0))
+    model = model.to(args.device)
+    if batches is None:
+        batches = TrainBatches(args.size, args.batch, args.device)
+    n_classes = seg_cfg.num_classes
+
+    # median-frequency class balancing from a label sample, the rare-class
+    # boost capped at 4
+    cw = torch.clamp(segnet.median_frequency_weights(
+        batches.class_weight_batches(), n_classes), max=4.0)
+    print("class weights:", np.round(cw.numpy(), 2), file=sys.stderr)
+    step = segnet.make_train_step(model, segnet.adam(model, args.lr),
+                                  class_weights=cw.to(args.device))
+    hold_x, hold_y = batches.holdout()
+    ho_x, ho_y = batches.heldout_world()
+
+    def eval_miou(x, y):
+        pred = segnet.infer(model.eval(), x)
+        return float(segnet.miou(pred, y, n_classes))
+
+    best = (-1.0, None)   # (mean of the two eval mIoUs, state)
+    t0 = time.time()
+    for it in range(args.steps):
+        x, y = batches.train(it)
+        loss = step(x, y)
+        if it % 25 == 0 or it == args.steps - 1:
+            mh = eval_miou(hold_x, hold_y)
+            mw = eval_miou(ho_x, ho_y)
+            if 0.5 * (mh + mw) > best[0]:
+                best = (0.5 * (mh + mw),
+                        {k: v.detach().clone()
+                         for k, v in model.state_dict().items()})
+            print(f"step {it}: loss {float(loss):.4f} holdout mIoU "
+                  f"{mh:.3f} heldout-world mIoU {mw:.3f}",
+                  file=sys.stderr, flush=True)
+    train_s = time.time() - t0
+    print(f"trained {args.steps} steps in {train_s:.2f} s "
+          f"({args.steps / max(train_s, 1e-9):.3f} steps/s)",
+          file=sys.stderr)
+    # ship the best-by-eval checkpoint, not the last step
+    if best[1] is not None:
+        model.load_state_dict(best[1])
+    final_miou = eval_miou(hold_x, hold_y)
+    world_miou = eval_miou(ho_x, ho_y)
+
+    pred = segnet.infer(model.eval(), ho_x).cpu().numpy()
+    gt = ho_y.cpu().numpy()
+    recall = {}
+    for c, name in enumerate(semcls.CLASS_NAMES):
+        mask = gt == c
+        if mask.sum() > 0:
+            recall[name] = round(float((pred[mask] == c).mean()), 4)
+    print("per-class recall (held-out world):", recall, file=sys.stderr)
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    segnet.save_checkpoint(
+        out / "segnet.pkl", seg_cfg, model,
+        meta={"miou": final_miou,
+              "miou_heldout_world": world_miou,
+              "per_class_recall_heldout_world": recall,
+              "steps": args.steps, "width_mult": args.width,
+              "train_size": args.size,
+              "holdout_frames": int(args.batch),
+              "heldout_world": "loop-circuit family, seed stream 424242"})
+    print(f"saved {out / 'segnet.pkl'} (holdout mIoU {final_miou:.3f}, "
+          f"held-out world mIoU {world_miou:.3f})")
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="semantic_slam_mapping_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -533,7 +727,19 @@ def main(argv=None):
     p.add_argument("--depth", type=int, default=3)
     p.set_defaults(fn=cmd_make_vocab)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser("train-segnet", parents=[common])
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--size", type=int, default=128)
+    p.add_argument("--width", type=float, default=1.0,
+                   help="channel width multiplier (slim checkpoints)")
+    p.set_defaults(fn=cmd_train_segnet)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     from semantic_slam_mapping_torch.device import resolve
     args.device = resolve(args.device)
     args.fn(args)

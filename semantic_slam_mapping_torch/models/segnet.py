@@ -15,26 +15,44 @@ not folded into the convolution: that would round elsewhere. Pooling keeps
 the first maximal entry of each 2x2 window in row-major order, as the JAX
 package's one-hot indices do.
 
+Training follows the JAX package's ``loss_fn`` and ``make_train_step``:
+a new network is in eval mode (inference, the JAX module's default) and
+``SegNet.train()`` switches BatchNorm to Flax's train mode (batch
+statistics, running buffers updated with momentum 0.9), and
+:func:`make_train_step` takes one Adam step (optax's ``adam``
+hyper-parameters) on a class-weighted cross-entropy. Gradients go through
+the pooling as through JAX's ``reduce_max``: a window's tied maxima share
+it evenly, and the one-hot indices carry none.
+
 :func:`load_checkpoint` reads the JAX package's pickles (numpy arrays
-only) by path; :func:`create` makes a seeded random network.
+only) by path and :func:`save_checkpoint` writes them; :func:`create`
+makes a seeded random network drawn as Flax's ``init`` draws it.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from semantic_slam_mapping_torch.config import SegNetConfig
-from semantic_slam_mapping_torch.utils.convert import segnet_state_from_flax
+from semantic_slam_mapping_torch.utils.convert import (segnet_state_from_flax,
+                                                        segnet_state_to_flax)
 
 # encoder plan: (convs per block, channels), VGG16
 _BLOCKS: Sequence[Tuple[int, int]] = (
     (2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# Flax's BatchNorm(momentum=0.9) and epsilon
+_BN_MOMENTUM = 0.9
+_BN_EPS = 1e-5
+# the standard deviation of a standard normal truncated to [-2, 2]: Flax's
+# lecun_normal divides its scale by it, so a kernel keeps variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
 
 
 def max_pool_with_indices(x: torch.Tensor
@@ -70,8 +88,18 @@ def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with Flax's rounding: float32
-    arithmetic on the input, the result cast back to the input's dtype."""
+    """BatchNorm over the last axis with Flax's rounding: float32 arithmetic
+    (float64 for a float64 input) on the input, the result cast back to the
+    input's dtype.
+
+    In eval mode, where a new module starts (the JAX module's ``train=False``
+    default), it normalises with the running ``mean`` and ``var``. In
+    train mode it does what Flax's ``BatchNorm(use_running_average=False,
+    momentum=0.9)`` does: it normalises with the batch's float32 statistics
+    over (B, H, W), the variance by the fast biased formula ``max(0, E[y^2]
+    - E[y]^2)``, and moves the running buffers to ``0.9 * old + 0.1 *
+    batch`` outside autograd. (``F.batch_norm`` would keep the unbiased
+    variance and compute it another way.)"""
 
     def __init__(self, features: int):
         super().__init__()
@@ -79,10 +107,23 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.eval()
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + 1e-5) * self.scale
-        return ((y.float() - self.mean) * mul + self.bias).to(y.dtype)
+        # at least float32, as Flax promotes (float64 stays float64)
+        yf = y.to(torch.promote_types(y.dtype, torch.float32))
+        if self.training:
+            mean = yf.mean(dim=(0, 1, 2))
+            var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + _BN_EPS) * self.scale
+        return ((yf - mean) * mul + self.bias).to(y.dtype)
 
 
 class ConvBNRelu(nn.Module):
@@ -92,6 +133,7 @@ class ConvBNRelu(nn.Module):
         self.dtype = dtype
         self.conv = nn.Conv2d(in_features, features, 3, padding=1)
         self.bn = BatchNorm(features)
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(_conv_nhwc(x, self.conv, self.dtype)))
@@ -125,13 +167,14 @@ class SegNet(nn.Module):
                 ch_in = out
         self.blocks = nn.ModuleList(ConvBNRelu(i, o, dtype) for i, o in plan)
         self.classifier = nn.Conv2d(ch_in, num_classes, 3, padding=1)
+        self.eval()
 
     def _ch(self, ch: int) -> int:
         return max(8, int(round(ch * self.width_mult / 8)) * 8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) float in [0, 1], H and W multiples of 32 -> (B, H,
-        W, num_classes) float32 logits."""
+        W, num_classes) float32 logits (float64 for a float64 network)."""
         x = x.to(self.dtype)
         layers = iter(self.blocks)
         indices = []
@@ -144,24 +187,30 @@ class SegNet(nn.Module):
             x = max_unpool(x, indices[-1 - bi])
             for _ in range(n_convs):
                 x = next(layers)(x)
-        return _conv_nhwc(x, self.classifier, self.dtype).float()
+        # float32 logits, as the JAX module returns (float64 stays float64)
+        return _conv_nhwc(x, self.classifier, self.dtype).to(
+            torch.promote_types(self.dtype, torch.float32))
 
 
 def create(cfg: SegNetConfig = SegNetConfig(),
            generator: Optional[torch.Generator] = None) -> SegNet:
     """A SegNet of the configured width with weights drawn from
     ``generator`` (a CPU generator, so one seed gives the same network on
-    every device): He-normal kernels, so that activations keep their scale
-    through the 27 convolutions; zero biases; identity BatchNorm."""
+    every device) as the JAX package's ``create`` draws them with Flax's
+    defaults: every kernel lecun-normal (a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in), zero biases, identity
+    BatchNorm. The draws are torch's, not ``jax.random``'s: the
+    distribution is the same, the values are not."""
     model = SegNet(num_classes=cfg.num_classes, dtype=_DTYPES[cfg.dtype],
                    width_mult=cfg.width_mult)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape,
-                                           generator=generator)
-                               * (2.0 / fan_in) ** 0.5)
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                m.weight.copy_(w * std)
                 m.bias.zero_()
     return model.eval()
 
@@ -178,6 +227,94 @@ def load_checkpoint(path) -> Tuple[SegNet, dict]:
     model.load_state_dict(segnet_state_from_flax(d["params"],
                                                  d["batch_stats"]))
     return model.eval(), d.get("meta", {})
+
+
+def save_checkpoint(path, cfg: SegNetConfig, model: SegNet,
+                    meta: Optional[dict] = None, store_dtype=None) -> None:
+    """Pickle the model as the JAX package's ``save_checkpoint`` does: Flax's
+    nested ``params`` and ``batch_stats`` dicts of numpy arrays (kernels
+    HWIO), ``num_classes``, ``width_mult`` and ``dtype`` of ``cfg``, and
+    ``meta``. ``store_dtype`` (e.g. ``np.float16``) stores the arrays in a
+    smaller float type; either package's loader widens them to float32."""
+    params, batch_stats = segnet_state_to_flax(model.state_dict())
+    if store_dtype is not None:
+        def cast(tree):
+            return {k: cast(v) if isinstance(v, dict)
+                    else v.astype(store_dtype) for k, v in tree.items()}
+        params, batch_stats = cast(params), cast(batch_stats)
+    with open(path, "wb") as f:
+        pickle.dump({"params": params, "batch_stats": batch_stats,
+                     "num_classes": cfg.num_classes,
+                     "width_mult": cfg.width_mult, "dtype": cfg.dtype,
+                     "meta": meta or {}}, f)
+
+
+def loss_fn(model: SegNet, images: torch.Tensor, labels: torch.Tensor,
+            label_valid: Optional[torch.Tensor] = None,
+            class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's ``loss_fn``: the network in train mode (so its
+    BatchNorm buffers move, as JAX returns ``new_batch_stats``), then the
+    per-pixel cross-entropy of the float32 logits' log-softmax, weighted by
+    ``class_weights[labels]`` (zero where ``label_valid`` is false) and
+    divided by ``max(sum of the weights, 1e-6)``. The model's mode is
+    restored afterwards."""
+    was_training = model.training
+    model.train()
+    try:
+        logits = model(images)
+    finally:
+        model.train(was_training)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    ll = torch.gather(logp, -1, labels.unsqueeze(-1)).squeeze(-1)
+    pix_w = (class_weights[labels] if class_weights is not None
+             else torch.ones_like(ll))
+    if label_valid is not None:
+        pix_w = torch.where(label_valid, pix_w, 0.0)
+    return -(pix_w * ll).sum() / torch.clamp(pix_w.sum(), min=1e-6)
+
+
+def median_frequency_weights(label_batches, num_classes: int
+                             ) -> torch.Tensor:
+    """Median-frequency balancing weights (Badrinarayanan et al. 2015),
+    the JAX package's numpy code: w_c = median(freq) / freq_c over the
+    classes that appear; absent classes get weight 1. A float32 CPU
+    tensor."""
+    counts = np.zeros(num_classes, np.int64)
+    for y in label_batches:
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+        counts += np.bincount(np.asarray(y).ravel(), minlength=num_classes)
+    freq = counts / max(counts.sum(), 1)
+    present = freq > 0
+    med = np.median(freq[present])
+    w = np.where(present, med / np.maximum(freq, 1e-12), 1.0)
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def adam(model: SegNet, lr: float) -> torch.optim.Adam:
+    """The counterpart of ``optax.adam(lr)`` over the model's parameters
+    (not its BatchNorm buffers)."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def make_train_step(model: SegNet, optimizer: torch.optim.Optimizer,
+                    class_weights: Optional[torch.Tensor] = None
+                    ) -> Callable[[torch.Tensor, torch.Tensor],
+                                  torch.Tensor]:
+    """``step(images, labels) -> loss``: :func:`loss_fn` in train mode, its
+    gradient with respect to the parameters, and one optimizer step, as
+    the JAX package's ``make_train_step``. The loss is returned detached,
+    on the model's device, without a host synchronisation."""
+
+    def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, images, labels, class_weights=class_weights)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 @torch.no_grad()

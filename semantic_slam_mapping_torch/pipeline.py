@@ -57,7 +57,6 @@ inliers, the chi^2 trigger statistic) are kept as they are there.
 from __future__ import annotations
 
 import dataclasses
-import logging
 from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
@@ -80,9 +79,10 @@ from semantic_slam_mapping_torch.mapping.native import NativeVoxelMap
 from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops import orb
+from semantic_slam_mapping_torch.utils.logging import get_logger
 from semantic_slam_mapping_torch.utils.timing import StageTimer
 
-log = logging.getLogger("semantic_slam_mapping_torch.pipeline")
+log = get_logger("pipeline")
 
 # newest keyframes whose float16 device images stay resident (~3 MB each
 # at KITTI size); older ones rebuild from their host copies when a loop

@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as plain functions of numpy
 data (no JAX import): a config dict, intrinsics, a tracker state, a
 synthetic world and SegNet's Flax parameters each become the port's
-counterpart.
+counterpart; SegNet's state also goes back to Flax's layout
+(:func:`segnet_state_to_flax`), so trained weights cross both ways.
 """
 
 from __future__ import annotations
@@ -106,3 +107,34 @@ def segnet_state_from_flax(params: Mapping[str, Any],
         state[pre + "bn.mean"] = _f32(stats["mean"])
         state[pre + "bn.var"] = _f32(stats["var"])
     return state
+
+
+def segnet_state_to_flax(state: Mapping[str, torch.Tensor]
+                         ) -> tuple[dict, dict]:
+    """The inverse of :func:`segnet_state_from_flax`: the port's
+    ``SegNet.state_dict()`` -> Flax's ``(params, batch_stats)``, nested
+    dicts of float32 numpy arrays. ``blocks.<i>`` becomes ``ConvBNRelu_<i>``
+    and the classifier ``Conv_0``; OIHW kernels become HWIO."""
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def f32(t):
+        return t.detach().cpu().float().numpy()
+
+    def conv(prefix):
+        return {"kernel": f32(state[prefix + "weight"].permute(2, 3, 1, 0)),
+                "bias": f32(state[prefix + "bias"])}
+
+    params["Conv_0"] = conv("classifier.")
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in state
+                       if k.startswith("blocks."))
+    for i in range(n_blocks):
+        pre = f"blocks.{i}."
+        params[f"ConvBNRelu_{i}"] = {
+            "Conv_0": conv(pre + "conv."),
+            "BatchNorm_0": {"scale": f32(state[pre + "bn.scale"]),
+                            "bias": f32(state[pre + "bn.bias"])}}
+        batch_stats[f"ConvBNRelu_{i}"] = {"BatchNorm_0": {
+            "mean": f32(state[pre + "bn.mean"]),
+            "var": f32(state[pre + "bn.var"])}}
+    return params, batch_stats

@@ -1,8 +1,8 @@
 """The port and chip_smoke.py import neither JAX, nor the JAX package,
 nor Pillow (checked in a fresh interpreter, since this test process has
 them loaded); the walk reaches every module of the port, the map, SegNet,
-the checkpoint, the command line, the dataset readers and the RGB-D
-tracker among them."""
+the checkpoint, the command line, the dataset readers, the RGB-D
+tracker and the loggers among them."""
 
 import pkgutil
 import subprocess
@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
         "mapping.mapper", "mapping.native", "mapping.semantics",
         "models.segnet", "utils.checkpoint", "cli", "io.png", "io.frame",
         "io.gt_pose", "io.kitti", "io.tum", "utils.plot",
-        "frontend.rgbd_tracker", "frontend.quadmatch_desc")} <= names
+        "frontend.rgbd_tracker", "frontend.quadmatch_desc",
+        "utils.logging")} <= names
     expected = len(names)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
