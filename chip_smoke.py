@@ -131,6 +131,23 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    192, 192, 3) and at the serving size (4, 384, 480, 3): CUDA events,
    launches, peak memory, share of the bf16 peak and the bound.
 
+14. ``golden`` (run after ``window``): the first 60 frames of the JAX
+   package's golden circuit (``golden.py``: 500 frames at 376x1248,
+   radius 30 m, 1.25 laps, 6 movers) through ``golden_torch.py``'s
+   functions: the seed-7 world read from
+   ``golden_worlds/loop_s7_r30_b48_m6.json`` (the JAX package's own draw),
+   rendered on the card and kept there as float16, a vocabulary of the
+   sequence, each frame fed as a float32 tensor on the card with the
+   renderer's labels, the map on, then ``finish()``. Counts zeroed just
+   before and read just after: the SGM kernel must run exactly twice per
+   tracked frame. The run must need no recovery, keep every excluded
+   class out of the map, build a record with every key of
+   ``GOLDEN_r05.json``, leave the newest frame at the last keyframe's
+   pose (where ``finish()`` puts it, as the JAX package's does) and hold
+   the other frames to an ATE RMSE under 0.56 m (2% of the 27.8 m driven).
+   Prints the record's numbers (its ATE over every frame too) and the peak
+   device memory.
+
 ``python3 chip_smoke.py --phases kernels,window`` runs the named phases
 only (after ``device`` and ``build``) and prints no result line: a quick
 check while a kernel or a phase changes.
@@ -182,6 +199,8 @@ from semantic_slam_mapping_torch.ops import matching, orb, sgbm
 from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
 from semantic_slam_mapping_torch.pipeline import SlamSystem
 from semantic_slam_mapping_torch.utils.metrics import ate_rmse
+
+import golden_torch
 
 T0 = time.time()
 ROOT = Path(__file__).resolve().parent
@@ -252,6 +271,11 @@ JAX_W1_MIOU = (0.9532, 0.9280)
 # phase's size
 WINDOW_B = 8
 N_WINDOW = 4 * WINDOW_B + 1
+# the golden phase: the first 60 frames of the 500-frame golden circuit
+# (0.471 m a frame), its ATE bound 2% of the 27.8 m driven in 59 steps,
+# a libviso2-class odometry's drift
+N_GOLDEN = 60
+GOLDEN_ATE_BOUND_M = 0.56
 
 
 def emit(phase: str, **fields) -> None:
@@ -1489,6 +1513,74 @@ def profile_window(system: SlamSystem, lefts, rights) -> dict:
             "device_events": len(dev), "launches_per_frame": len(dev) / B}
 
 
+def phase_golden(card: str, device: str = "cuda", height: int = H,
+                 width: int = W, n_frames: int = N_GOLDEN) -> dict:
+    """The first frames of golden_torch.py's stereo circuit, on the JAX
+    package's world, with the renderer's labels and the map."""
+    args = golden_torch.parse_args(["--gt-semantics", "--device", device])
+    cfg = golden_torch.golden_config(args, width=width)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    world = golden_torch.load_world(args, device)
+    poses = golden_torch.circuit_poses(args, device)
+    frames = golden_torch.render_circuit(cfg, world, poses, height, width,
+                                         rgbd=False, stop=n_frames)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    emit("golden", step="rendered", frames=n_frames, of=args.frames,
+         shape=[height, width], world=golden_torch.world_path(
+             args.seed, args.radius, args.boxes).name,
+         seconds=round(time.time() - t, 2))
+    t = time.time()
+    vocab = golden_torch.sequence_vocabulary(cfg, frames["left"])
+    emit("golden", step="vocabulary", leaves=vocab.n_leaves,
+         seconds=round(time.time() - t, 2))
+
+    sgm_cuda.sgm_aggregate4.launches = 0
+    run = golden_torch.run_golden(args, cfg, vocab, frames, device,
+                                  log=lambda line: emit("golden",
+                                                        progress=line))
+    launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    gt = poses[:n_frames].cpu().numpy().astype(np.float64)
+    rec = golden_torch.make_record(args, run, frames, gt, card)
+    # the bound holds the frames before the newest, which finish() puts at
+    # the last keyframe's pose as the JAX package does (checked here)
+    ate_tracked = golden_torch.tracked_ate(run, gt)
+    keys = set(json.loads((ROOT / "GOLDEN_r05.json").read_text()))
+    tracked = n_frames - 1
+    shown = ("frames", "resolution", "ate_rmse_m", "ate_mean_m",
+             "rpe_trans_rmse_m", "rpe_rot_rmse_deg", "keyframes",
+             "loop_edges", "global_optimizations", "local_optimizations",
+             "recoveries", "map_voxels", "excluded_class_voxels", "fps",
+             "wall_s", "peak_memory_mb", "world_file",
+             "world_loaded_from_json", "stage_times")
+    emit("golden", launches=launches, tracked=tracked,
+         ate_rmse_tracked_m=round(ate_tracked, 4),
+         ate_bound_m=GOLDEN_ATE_BOUND_M,
+         keyframe_frames=rec["keyframe_frames"],
+         missing_keys=sorted(keys - set(rec)),
+         **{k: rec[k] for k in shown}, card=card)
+
+    if not rec["world_loaded_from_json"]:
+        raise AssertionError("the golden world was not read from its JSON")
+    if device == "cuda" and launches["sgm_aggregate4"] != 2 * tracked:
+        raise AssertionError(f"sgm_aggregate4 launched "
+                             f"{launches['sgm_aggregate4']} times for "
+                             f"{tracked} tracked frames, expected 2 each")
+    if rec["recoveries"]:
+        raise AssertionError(f"{rec['recoveries']} recoveries")
+    if rec["excluded_class_voxels"]:
+        raise AssertionError("a voxel of an excluded class is in the map")
+    if not keys <= set(rec):
+        raise AssertionError(f"the record lacks {sorted(keys - set(rec))}")
+    if not (np.all(np.isfinite(run["traj"]))
+            and ate_tracked < GOLDEN_ATE_BOUND_M):
+        raise AssertionError(f"ATE of the tracked frames {ate_tracked} m "
+                             f">= {GOLDEN_ATE_BOUND_M} m")
+    return {"launches": launches}
+
+
 def phase_window(card: str, device: str = "cuda", height: int = H,
                  width: int = W_KITTI) -> dict:
     """The throughput mode: 4 windows of 8 pairs through process_window,
@@ -2122,6 +2214,7 @@ def main(argv=None) -> int:
         phase_stages(frames)
         phase_candidates(epoch)
         window = phase_window(info["card"])
+        golden = phase_golden(info["card"])
         phase_parity(frames, epoch["system"], train["weights"])
     # the main path is the command line's slam; each path's count was
     # zeroed just before it and read just after
@@ -2131,6 +2224,7 @@ def main(argv=None) -> int:
         "slice": slice_launches[row["name"]],
         "epoch": epoch["launches"][row["name"]],
         "window": window["launches"][row["name"]],
+        "golden": golden["launches"][row["name"]],
         "train-segnet": train["sgm_launches"]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
@@ -2161,6 +2255,7 @@ def run_phases(names) -> int:
     runs = {"kernels": lambda: phase_kernels(),
             "window": lambda: phase_window(info["card"]),
             "epoch": lambda: phase_epoch(info["card"]),
+            "golden": lambda: phase_golden(info["card"]),
             "train": lambda: train_alone(info["card"]),
             "sgbm_parity": lambda: sgbm_parity_alone(
                 render_frames(SlamConfig())[0])}

@@ -8,13 +8,16 @@ the port's own source of KITTI-size frames. :func:`make_world` and
 :func:`make_loop_world` draw from a ``torch.Generator`` (it cannot replay
 ``jax.random``), so their worlds follow the same recipe with other draws;
 :func:`render` takes any world's arrays, so a JAX-made world renders here
-too.
+too: :func:`load_world_json` reads one that ``tools/torch_golden_world.py``
+exported.
 
 Conventions: camera x right, y down, z forward; world = first camera.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -201,6 +204,28 @@ def make_loop_world(generator: torch.Generator, n_boxes: int = 48,
                  vel.to(device) if n_moving > 0 else None)
 
 
+def load_world_json(path, device: str | torch.device = "cuda") -> World:
+    """A world written by ``tools/torch_golden_world.py`` (the JAX
+    package's ``make_loop_world`` draw, float32 values exact in the JSON).
+    A missing file raises; no world is drawn in its place."""
+    # convert imports World from this module
+    from semantic_slam_mapping_torch.utils.convert import world_from_numpy
+
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no world file {path}: export the JAX package's worlds with "
+            "`python tools/torch_golden_world.py` (on the CPU, with JAX)")
+    d = json.loads(path.read_text())
+    vel = d["box_velocity"]
+    return world_from_numpy(
+        np.asarray(d["boxes"], np.float32),
+        np.asarray(d["box_class"], np.int64),
+        np.float32(d["ground_y"]), np.float32(d["backdrop_z"]),
+        None if vel is None else np.asarray(vel, np.float32),
+        device=device)
+
+
 def _value_noise(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Non-periodic value noise in [-1, 1] on the integer lattice of (u, v),
     smoothstep-interpolated."""
@@ -343,6 +368,20 @@ def straight_trajectory(n_frames: int, speed: float = 0.8,
     return torch.stack(poses)
 
 
+def _angles(stop: float, n: int, device: str | torch.device) -> torch.Tensor:
+    """``jnp.linspace(0, stop, n)`` as XLA computes it, to the bit: the
+    division by n - 1 folded into a reciprocal and the products
+    reassociated, (stop * float32(1 / (n - 1))) * i, then stop itself.
+    ``torch.linspace`` rounds otherwise: an ulp of the angle, 1.4e-5 m on
+    a 30 m circle."""
+    b = torch.tensor(stop, dtype=torch.float32, device=device)
+    if n == 1:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    r = torch.tensor(1.0, dtype=torch.float32, device=device) / (n - 1)
+    i = torch.arange(n - 1, dtype=torch.float32, device=device)
+    return torch.cat([(b * r) * i, b[None]])
+
+
 def loop_trajectory(n_frames: int, radius: float = 30.0,
                     laps: float = 1.2, pitch_amp: float = 0.0,
                     revisit_offset: float = 0.0,
@@ -354,7 +393,7 @@ def loop_trajectory(n_frames: int, radius: float = 30.0,
     smoothstep over 1/16 lap past 2 pi), so the revisit runs in a parallel
     lane."""
     pi = float(np.pi)
-    th = torch.linspace(0.0, 2.0 * pi * laps, n_frames, device=device)
+    th = _angles(2.0 * pi * laps, n_frames, device)
     ramp = torch.clamp((th - 2.0 * pi) / (pi / 8.0), 0.0, 1.0)
     r_eff = radius + revisit_offset * (ramp * ramp * (3.0 - 2.0 * ramp))
     pos = torch.stack([radius - r_eff * torch.cos(th), torch.zeros_like(th),

@@ -1114,7 +1114,9 @@ class SlamSystem:
             self.graph.poses[:nv] = g.poses.cpu().numpy()
 
         if force_global or self.loop_error > cfg.loop_accumulate_error:
-            solve(pg.global_free_mask, cfg.global_iters)
+            # the solve ends in a readback, so the stage is its wall time
+            with self.timer.stage("optimize/global"):
+                solve(pg.global_free_mask, cfg.global_iters)
             self.loop_error = 0.0
             self.local_error = 0.0
             did = True

@@ -1,8 +1,8 @@
-"""The port and chip_smoke.py import neither JAX, nor the JAX package,
-nor Pillow (checked in a fresh interpreter, since this test process has
-them loaded); the walk reaches every module of the port, the map, SegNet,
-the checkpoint, the command line, the dataset readers, the RGB-D
-tracker and the loggers among them."""
+"""The port, chip_smoke.py and golden_torch.py import neither JAX, nor
+the JAX package, nor Pillow (checked in a fresh interpreter, since this
+test process has them loaded); the walk reaches every module of the
+port, the map, SegNet, the checkpoint, the command line, the dataset
+readers, the RGB-D tracker and the loggers among them."""
 
 import pkgutil
 import subprocess
@@ -47,6 +47,7 @@ def test_port_imports_no_jax():
 CHIP_PROBE = """
 import sys
 import chip_smoke
+import golden_torch
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "semantic_slam_mapping_tpu",
                                     "PIL")))
