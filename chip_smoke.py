@@ -148,6 +148,31 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    Prints the record's numbers (its ATE over every frame too) and the peak
    device memory.
 
+15. ``mesh`` (run after ``golden``): the multi-device serving path on a
+   world of one. ``parallel.mesh.initialize_distributed`` starts NCCL
+   with one rank (a ``file://`` store in a temporary directory) and
+   ``make_mesh(1, dp=1, tp=1)`` builds the (data, model) mesh. The window
+   phase's 33 street frames at 376x1241 with the renderer's labels, as 4
+   windows of B = 8, go through ``SlamSystem(cfg, vocab,
+   enable_mapping=True, device="cuda")`` and through the same with
+   ``mesh=mesh`` (a vocabulary of the street, so that loops are scored),
+   each with ``finish()``, in turns: meshless, mesh, mesh, meshless.
+   Counts zeroed just before the first mesh run and read just after: the SGM kernel must run exactly twice a window and every
+   collective must have run. The mesh run must make the meshless run's
+   keyframes, statuses, loop edges and optimisations, its poses within
+   1e-4 of the meshless ones (equal is expected: one rank sums as one
+   device), an ATE under 0.3 m, and map into the slab-sharded map. Then
+   ``optimize_sharded`` against ``pose_graph.optimize`` on the street's
+   graph and on a noisy 24-keyframe ring with loop edges (within 1e-4, two
+   sharded solves identical), the sharded sparse BoW scan against
+   ``get_possible_loops_sparse`` on the street's database and on a
+   2048-row one (within 1e-6, masks equal), and ``ShardedGlobalMap``
+   against the host ``GlobalMap`` on three clouds under its budget (voxel
+   keys within 1%). Prints the four runs' frames/s, both ATEs, the
+   collectives' calls and bytes, the card ms of one call of each at the
+   path's shapes and the mesh run's collective time they add up to, and
+   K1's launches.
+
 ``python3 chip_smoke.py --phases kernels,window`` runs the named phases
 only (after ``device`` and ``build``) and prints no result line: a quick
 check while a kernel or a phase changes.
@@ -176,6 +201,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from semantic_slam_mapping_torch import cli as cli_mod
 from semantic_slam_mapping_torch import pipeline
@@ -186,17 +212,22 @@ from semantic_slam_mapping_torch.config import (CameraConfig, SegNetConfig,
 from semantic_slam_mapping_torch.frontend import quadmatch, tracker, vo
 from semantic_slam_mapping_torch.frontend import rgbd_tracker
 from semantic_slam_mapping_torch.frontend import uvdisparity as uvd
-from semantic_slam_mapping_torch.geometry import se3_np
+from semantic_slam_mapping_torch.geometry import se3, se3_np
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics
 from semantic_slam_mapping_torch.io import png, synthetic
 from semantic_slam_mapping_torch.io.gt_pose import (read_kitti_poses,
                                                     write_kitti_poses)
 from semantic_slam_mapping_torch.io.kitti import KittiReader
-from semantic_slam_mapping_torch.mapping import native, semantics
+from semantic_slam_mapping_torch.mapping import mapper, native, semantics
 from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import matching, orb, sgbm
 from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
+from semantic_slam_mapping_torch.parallel import mesh as pmesh
+from semantic_slam_mapping_torch.parallel import (sharded_bow,
+                                                  sharded_frontend,
+                                                  sharded_pcg)
+from semantic_slam_mapping_torch.parallel.sharded_map import ShardedGlobalMap
 from semantic_slam_mapping_torch.pipeline import SlamSystem
 from semantic_slam_mapping_torch.utils.metrics import ate_rmse
 
@@ -1689,6 +1720,304 @@ def phase_window(card: str, device: str = "cuda", height: int = H,
     return {"launches": launches}
 
 
+def ring_graph(device: str, n: int = 24, M: int = 64, E: int = 128):
+    """A pose graph of n keyframes on a ring of radius 10 m: odometry edges
+    and three loop edges with 0.01 noise, the vertices integrated from
+    0.03-noisy odometry (fixed seed), in M vertex and E edge slots."""
+    rng = np.random.default_rng(3)
+
+    def pose(th):
+        T = np.eye(4)
+        c, s = np.cos(th), np.sin(th)
+        T[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        T[:3, 3] = [10 - 10 * c, 0, 10 * s]
+        return T
+
+    def noisy(T, sigma):
+        return se3.exp(torch.from_numpy(rng.normal(0, sigma, 6))).numpy() @ T
+
+    gt = [pose(2 * np.pi * k / n) for k in range(n)]
+    edges = [(k, k + 1) for k in range(n - 1)] + [(n - 1, 0), (n - 2, 1),
+                                                  (n // 2, 0)]
+    g = pg.PoseGraph(
+        poses=np.tile(np.eye(4, dtype=np.float32), (M, 1, 1)),
+        vertex_valid=np.arange(M) < n, edge_i=np.zeros(E, np.int64),
+        edge_j=np.zeros(E, np.int64),
+        edge_T=np.tile(np.eye(4, dtype=np.float32), (E, 1, 1)),
+        edge_info=np.zeros(E, np.float32), edge_valid=np.zeros(E, bool),
+        edge_is_loop=np.zeros(E, bool))
+    for e, (i, j) in enumerate(edges):
+        g.edge_i[e], g.edge_j[e] = i, j
+        g.edge_T[e] = noisy(np.linalg.inv(gt[i]) @ gt[j], 0.01)
+        g.edge_info[e], g.edge_valid[e] = 100.0, True
+        g.edge_is_loop[e] = e >= n - 1
+    acc = np.eye(4)
+    for k in range(1, n):
+        acc = acc @ noisy(np.linalg.inv(gt[k - 1]) @ gt[k], 0.03)
+        g.poses[k] = acc
+    return pg.PoseGraph(*(torch.from_numpy(a).to(device) for a in g))
+
+
+def sparse_database(M: int = 2048, B: int = 64, n_words: int = 100_000):
+    """A sparse BoW database of M rows (tests/test_sharded_bow.py's recipe,
+    fixed seed) and a query that shares row 100's words."""
+    rng = np.random.default_rng(1)
+    idx = np.full((M, B), int(looper.PAD_WORD), np.int64)
+    w = np.zeros((M, B), np.float32)
+    for i in range(M):
+        k = rng.integers(16, B)
+        idx[i, :k] = np.sort(rng.choice(n_words, size=k, replace=False))
+        w[i, :k] = rng.dirichlet(np.ones(k)).astype(np.float32)
+    q_w = w[100] * 0.8
+    return (idx[100].copy(), (q_w / q_w.sum()).astype(np.float32), idx, w,
+            np.arange(M, dtype=np.int64) * 2, rng.uniform(size=M) > 0.05)
+
+
+def mesh_window_run(cfg: SlamConfig, vocab, lefts, rights, labels, device,
+                    mesh=None):
+    """SlamSystem (with ``mesh``, or without) over the street's windows
+    with the vocabulary and the map, then finish(): the system, its
+    window seconds, its trajectory and graph (``final_graph``) before
+    finish(), and its finished trajectory."""
+    wins = [slice(i, i + WINDOW_B + 1)
+            for i in range(0, N_WINDOW - 1, WINDOW_B)]
+    system = SlamSystem(cfg, vocab=vocab, enable_mapping=True, device=device,
+                        mesh=mesh)
+    t = time.time()
+    for w in wins:
+        system.process_window(lefts[w], rights[w], semantics=labels[w])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.time() - t
+    traj = np.stack(system.trajectory)
+    graph = final_graph(system)
+    return system, seconds, traj, graph, system.finish()
+
+
+def collective_ms(mesh, device: str, out: tracker.FrameResult,
+                  n_vertices: int, db_rows: int, budget: int) -> dict:
+    """Card ms of one call of each collective of the mesh path at the
+    shapes it runs them (CUDA events, median of 25 after 3 warm-ups): the
+    window's gather of its per-pair fields, one all-reduce of the PCG's
+    (M, 6) vector and of its (M, 6, 6) blocks, the BoW's gather of (rows,
+    2) scores and the map's ring exchange of two (budget,) key arrays."""
+    group = pmesh.axis_group(mesh)
+    vec = torch.zeros((n_vertices, 6), device=device)
+    blocks = torch.zeros((n_vertices, 6, 6), device=device)
+    scores = torch.zeros((db_rows, 2), device=device)
+    keys = torch.zeros(budget, dtype=torch.int64, device=device)
+    return {
+        "window_gather_result": cuda_ms(lambda: sharded_frontend.
+                                        gather_result(out, mesh)),
+        "pcg_all_reduce_vector": cuda_ms(
+            lambda: pmesh.all_reduce_sum(vec, group)),
+        "pcg_all_reduce_blocks": cuda_ms(
+            lambda: pmesh.all_reduce_sum(blocks, group)),
+        "bow_all_gather": cuda_ms(lambda: pmesh.all_gather(scores, group)),
+        "map_ring_exchange": cuda_ms(
+            lambda: pmesh.ring_exchange(keys, keys, group))}
+
+
+def phase_mesh(card: str, device: str = "cuda", height: int = H,
+               width: int = W_KITTI) -> dict:
+    """The mesh mode on a world of one: SlamSystem(mesh=...) against the
+    meshless system on the window phase's street, then the sharded solve,
+    BoW scan and map against their single-device counterparts."""
+    cfg = SlamConfig() if width == W_KITTI else loop_camera(height, width)
+    t0 = time.time()
+    lefts, rights, labels, gt = render_street(cfg, N_WINDOW, height, width,
+                                              device)
+    vocab = loop_vocabulary(cfg, [(left,) for left in lefts], device)
+    emit("mesh", step="rendered", frames=N_WINDOW, shape=[height, width],
+         vocabulary_leaves=vocab.n_leaves,
+         seconds=round(time.time() - t0, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        world = pmesh.initialize_distributed(
+            f"file://{Path(tmp) / 'store'}", 1, 0, device=device)
+        try:
+            mesh = pmesh.make_mesh(1, dp=1, tp=1, device=device)
+            row = mesh_checks(cfg, vocab, lefts, rights, labels, gt, mesh,
+                              device, card)
+        finally:
+            dist.destroy_process_group()
+    row["world"] = world
+    return row
+
+
+def mesh_checks(cfg, vocab, lefts, rights, labels, gt, mesh, device,
+                card) -> dict:
+    """The body of phase_mesh, on an initialised mesh."""
+    # warm-up: one window on a meshless system of its own
+    warm = SlamSystem(cfg, enable_mapping=True, device=device)
+    warm.process_window(lefts[:WINDOW_B + 1], rights[:WINDOW_B + 1],
+                        semantics=labels[:WINDOW_B + 1])
+    warm.finish()
+
+    # in turns: meshless, mesh, mesh, meshless; the checks read the first
+    # run of each, whose mesh run's counts are zeroed just before it
+    ref, ref_s, ref_traj, ref_graph, ref_final = mesh_window_run(
+        cfg, vocab, lefts, rights, labels, device)
+    pmesh.reset_counts()
+    sgm_cuda.sgm_aggregate4.launches = 0
+    sys_m, mesh_s, traj, _, final = mesh_window_run(
+        cfg, vocab, lefts, rights, labels, device, mesh=mesh)
+    launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+    counts = pmesh.counts()
+    mesh_s2 = mesh_window_run(cfg, vocab, lefts, rights, labels, device,
+                              mesh=mesh)[1]
+    ref_s2 = mesh_window_run(cfg, vocab, lefts, rights, labels, device)[1]
+
+    same = {
+        "poses_max_abs_diff": float(np.abs(traj - ref_traj).max()),
+        "finished_max_abs_diff": float(np.abs(final - ref_final).max()),
+        "statuses": [f.status for f in sys_m.frame_log]
+        == [f.status for f in ref.frame_log],
+        "keyframes": [k.frame_index for k in sys_m.keyframes]
+        == [k.frame_index for k in ref.keyframes],
+        "loop_edges": (sys_m.n_loop_edges, ref.n_loop_edges),
+        "optimizations": (sys_m.n_optimizations, ref.n_optimizations)}
+
+    # the sharded solve against pose_graph.optimize: the street's graph
+    # before finish() and a noisy ring with loop edges
+    pg_cfg = cfg.pose_graph
+    solves = {}
+    for name, (g, table, mask) in (
+            ("street", ref_graph),
+            ("ring", (lambda g: (g, None, pg.global_free_mask(g)))(
+                ring_graph(device)))):
+        a = pg.optimize(g, mask, pg_cfg, iters=pg_cfg.global_iters,
+                        table=table).poses
+        b = sharded_pcg.optimize_sharded(g, mask, mesh, pg_cfg,
+                                         iters=pg_cfg.global_iters).poses
+        b2 = sharded_pcg.optimize_sharded(g, mask, mesh, pg_cfg,
+                                          iters=pg_cfg.global_iters).poses
+        solves[name] = {"max_abs_err": float((a - b).abs().max()),
+                        "repeat_identical": bool(torch.equal(b, b2)),
+                        "moved": float((a - g.poses).abs().max())}
+
+    # the sharded sparse BoW scan: the reference system's database with
+    # its newest keyframe's query, and a 2048-row database
+    kf = ref.keyframes[-1]
+    cap = ref._db_idx.shape[0]
+    ids = torch.tensor([k.frame_index for k in ref.keyframes]
+                       + [0] * (cap - len(ref.keyframes)), device=device)
+    valid = torch.arange(cap, device=device) < len(ref.keyframes)
+    q_idx, q_w, idx, w, sids, svalid = sparse_database()
+    up = lambda a: torch.from_numpy(a).to(device)      # noqa: E731
+    bow = {}
+    for name, args in (
+            ("street", (*kf.bow_dev, ref._db_idx, ref._db_w, ids, valid,
+                        kf.frame_index)),
+            ("2048_rows", (up(q_idx), up(q_w), up(idx), up(w), up(sids),
+                           up(svalid), 5000))):
+        s1, m1 = looper.get_possible_loops_sparse(
+            looper.SparseBow(args[0], args[1]), *args[2:],
+            cfg.looper.min_sim_score, cfg.looper.min_interval)
+        s2, m2 = sharded_bow.get_possible_loops_sparse_sharded(
+            *args[:6], args[6], mesh, cfg.looper.min_sim_score,
+            cfg.looper.min_interval)
+        bow[name] = {"rows": int(args[2].shape[0]),
+                     "max_abs_err": float((s1 - s2).abs().max()),
+                     "masks_equal": bool(torch.equal(m1, m2)),
+                     "candidates": int(m1.sum())}
+
+    # ShardedGlobalMap against the host GlobalMap on clouds under the
+    # budget (__graft_entry__.py:162-193)
+    rng = np.random.default_rng(0)
+    res = 0.2
+    smap = ShardedGlobalMap(mesh, res, budget=1 << 12, x_extent=8.0,
+                            pad_points=512)
+    gmap = mapper.GlobalMap(dataclasses.replace(cfg.mapper, resolution=res))
+    for _ in range(3):
+        xyz = (rng.uniform(-6.0, 6.0, (400, 3))
+               * np.array([1.0, 0.3, 0.3])).astype(np.float32)
+        col = rng.uniform(0, 1, (400, 3)).astype(np.float32)
+        smap.insert(xyz, col)
+        gmap.insert(xyz, col)
+    key = lambda xyz: set(map(tuple, np.floor(xyz / res).astype(  # noqa
+        np.int64).tolist()))
+    skeys, gkeys = key(smap.as_arrays()[0]), key(gmap.as_arrays()[0])
+    map_row = {"host_voxels": len(gkeys), "sharded_voxels": len(skeys),
+               "differing": len(skeys ^ gkeys),
+               "system_map_voxels": len(sys_m.map),
+               "meshless_system_map_voxels": len(ref.map)}
+
+    # one call of each collective at the path's shapes; the window's
+    # gather on a rank's own result of the first window
+    L = sys_m._upload_window(lefts[:WINDOW_B + 1])
+    R = sys_m._upload_window(rights[:WINDOW_B + 1])
+    _, local = sharded_frontend.track_frames_sharded(
+        tracker.TrackerState.initial(cfg, device), L, R, sys_m.K,
+        torch.Generator(device=device).manual_seed(0), cfg, mesh)
+    coll_ms = (collective_ms(mesh, device, local,
+                             ref_graph[0].poses.shape[0], cap,
+                             sys_m.map.budget)
+               if device == "cuda" else None)
+    if coll_ms is not None:
+        # the mesh run's collectives at these per-call times: a window's
+        # gather (12 all-gathers) a window, the other all-gathers at the
+        # BoW gather's, the all-reduces at the PCG vector's
+        windows = N_WINDOW // WINDOW_B
+        coll_ms["mesh_run_estimate"] = (
+            windows * coll_ms["window_gather_result"]
+            + (counts["all_gather"]["calls"] - 12 * windows)
+            * coll_ms["bow_all_gather"]
+            + counts["all_reduce_sum"]["calls"]
+            * coll_ms["pcg_all_reduce_vector"]
+            + counts["ring_exchange"]["calls"] / 2
+            * coll_ms["map_ring_exchange"])
+
+    fields = dict(
+        frames=N_WINDOW, windows=N_WINDOW // WINDOW_B,
+        pairs_per_window=WINDOW_B, mesh_shape=[1, 1],
+        backend=dist.get_backend(),
+        seconds=[mesh_s, mesh_s2],
+        frames_per_s=[N_WINDOW / mesh_s, N_WINDOW / mesh_s2],
+        meshless_seconds=[ref_s, ref_s2],
+        meshless_frames_per_s=[N_WINDOW / ref_s, N_WINDOW / ref_s2],
+        ate_rmse_m=ate_rmse(traj, gt), meshless_ate_rmse_m=ate_rmse(
+            ref_traj, gt), keyframes=len(sys_m.keyframes),
+        same_as_meshless=same, launches=launches, collectives=counts,
+        collective_ms=coll_ms, solves=solves, bow=bow, map=map_row,
+        card=card)
+    emit("mesh", **fields)
+
+    checks = [
+        (same["poses_max_abs_diff"] <= 1e-4
+         and same["finished_max_abs_diff"] <= 1e-4,
+         f"the mesh trajectory parts from the meshless one: {same}"),
+        (same["statuses"] and same["keyframes"]
+         and same["loop_edges"][0] == same["loop_edges"][1]
+         and same["optimizations"][0] == same["optimizations"][1],
+         f"the mesh system's decisions differ: {same}"),
+        (fields["ate_rmse_m"] < ATE_BOUND_M,
+         f"ATE {fields['ate_rmse_m']} m >= {ATE_BOUND_M} m"),
+        (all(counts[k]["calls"] > 0 for k in counts),
+         f"a collective of the mesh path never ran: {counts}"),
+        (all(r["max_abs_err"] <= 1e-4 and r["repeat_identical"]
+             for r in solves.values()) and solves["ring"]["moved"] > 1e-2,
+         f"the sharded solve: {solves}"),
+        (all(r["max_abs_err"] <= 1e-6 and r["masks_equal"]
+             for r in bow.values()) and bow["2048_rows"]["candidates"] > 0,
+         f"the sharded BoW scan: {bow}"),
+        (map_row["host_voxels"] > 100
+         and map_row["differing"] <= 0.01 * map_row["host_voxels"]
+         and map_row["system_map_voxels"] > 0,
+         f"the sharded map: {map_row}"),
+        (isinstance(sys_m.map, ShardedGlobalMap),
+         "the mesh system's map is not the sharded one"),
+    ]
+    if device == "cuda":
+        checks.append((launches["sgm_aggregate4"] == 2 * fields["windows"],
+                       f"sgm_aggregate4 launched "
+                       f"{launches['sgm_aggregate4']} times for "
+                       f"{fields['windows']} windows, expected 2 each"))
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"mesh: {msg}")
+    return {"launches": launches}
+
+
 class Parity:
     """Card-against-CPU checks: each records its error and tolerance and
     raises on a miss."""
@@ -2215,6 +2544,7 @@ def main(argv=None) -> int:
         phase_candidates(epoch)
         window = phase_window(info["card"])
         golden = phase_golden(info["card"])
+        mesh = phase_mesh(info["card"])
         phase_parity(frames, epoch["system"], train["weights"])
     # the main path is the command line's slam; each path's count was
     # zeroed just before it and read just after
@@ -2225,6 +2555,7 @@ def main(argv=None) -> int:
         "epoch": epoch["launches"][row["name"]],
         "window": window["launches"][row["name"]],
         "golden": golden["launches"][row["name"]],
+        "mesh": mesh["launches"][row["name"]],
         "train-segnet": train["sgm_launches"]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
@@ -2256,6 +2587,7 @@ def run_phases(names) -> int:
             "window": lambda: phase_window(info["card"]),
             "epoch": lambda: phase_epoch(info["card"]),
             "golden": lambda: phase_golden(info["card"]),
+            "mesh": lambda: phase_mesh(info["card"]),
             "train": lambda: train_alone(info["card"]),
             "sgbm_parity": lambda: sgbm_parity_alone(
                 render_frames(SlamConfig())[0])}

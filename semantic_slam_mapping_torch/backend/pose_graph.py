@@ -17,11 +17,15 @@ two costs, so one rounding difference could flip a step. Here each vertex
 sums its incident edge terms through a fixed gather table (edge terms in
 edge order, i-sides first, as the JAX scatter adds them) and a reduction
 over the table's rows: the same graph gives the same poses on every run.
+
+``_lm_optimize`` is the one optimiser body of the single-device and the
+edge-sharded solve (``parallel/sharded_pcg.py``): its ``reduce_sum`` sums
+the vertex sums and the cost over the edge shards, the identity here.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,10 +120,19 @@ def _vertex_sum(table: torch.Tensor, at_i: torch.Tensor,
     return torch.cat([at_i, at_j, pad])[table].sum(dim=1)
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def _lm_optimize(graph: PoseGraph, free: torch.Tensor,
-                 cfg: PoseGraphConfig, iters: int,
-                 table: torch.Tensor) -> torch.Tensor:
-    """LM + PCG over the free vertices; returns the (M, 4, 4) poses."""
+                 cfg: PoseGraphConfig, iters: int, table: torch.Tensor,
+                 reduce_sum: Callable = _identity
+                 ) -> torch.Tensor:
+    """LM + PCG over the free vertices; returns the (M, 4, 4) poses.
+    ``reduce_sum`` sums what the edges scatter into the vertices (the
+    block diagonal, the matvec, the gradient) and the cost across edge
+    shards, where the JAX body applies it: the identity on one device, an
+    all-reduce over the mesh's data axis for a shard of the edges."""
     dev = graph.poses.device
     M = graph.poses.shape[0]
     ei, ej = graph.edge_i, graph.edge_j
@@ -132,7 +145,7 @@ def _lm_optimize(graph: PoseGraph, free: torch.Tensor,
         rn = torch.sqrt(rn2 + 1e-12)
         d = cfg.huber_delta
         c = torch.where(rn <= d, rn2, 2.0 * d * rn - d * d)
-        return torch.sum(torch.where(graph.edge_valid, c, 0.0))
+        return reduce_sum(torch.sum(torch.where(graph.edge_valid, c, 0.0)))
 
     poses = graph.poses
     lam = torch.tensor(1e-2, device=dev)
@@ -143,7 +156,7 @@ def _lm_optimize(graph: PoseGraph, free: torch.Tensor,
         # block-Jacobi diagonal (also the LM damping metric)
         Hi = torch.einsum("eri,erj->eij", J_i, J_i * w[:, None, None])
         Hj = torch.einsum("eri,erj->eij", J_j, J_j * w[:, None, None])
-        blocks = _vertex_sum(table, Hi, Hj)
+        blocks = reduce_sum(_vertex_sum(table, Hi, Hj))
         diag = torch.diagonal(blocks, dim1=-2, dim2=-1)          # (M, 6)
 
         def matvec(x, lam=lam, w=w, J_i=J_i, J_j=J_j, diag=diag):
@@ -151,15 +164,17 @@ def _lm_optimize(graph: PoseGraph, free: torch.Tensor,
             xf = x * free
             y = (torch.einsum("erk,ek->er", J_i, xf[ei])
                  + torch.einsum("erk,ek->er", J_j, xf[ej])) * w[:, None]
-            out = _vertex_sum(table, torch.einsum("erk,er->ek", J_i, y),
-                              torch.einsum("erk,er->ek", J_j, y))
+            out = reduce_sum(_vertex_sum(
+                table, torch.einsum("erk,er->ek", J_i, y),
+                torch.einsum("erk,er->ek", J_j, y)))
             damp = lam * (diag + 1e-6) * xf
             return (out + damp + 1e-6 * x) * free
 
         # gradient b = -J^T W r
         wr = r * w[:, None]
-        b = -_vertex_sum(table, torch.einsum("erk,er->ek", J_i, wr),
-                         torch.einsum("erk,er->ek", J_j, wr)) * free
+        b = -reduce_sum(_vertex_sum(
+            table, torch.einsum("erk,er->ek", J_i, wr),
+            torch.einsum("erk,er->ek", J_j, wr))) * free
 
         pre_blocks = (blocks + (lam * (diag + 1e-6))[:, :, None] * eye6
                       + 1e-5 * eye6)

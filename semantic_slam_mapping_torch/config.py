@@ -2,7 +2,8 @@
 
 A copy of the sections of ``semantic_slam_mapping_tpu/config.py`` that the
 dataset readers, the frontend, the keyframe epoch, SegNet and the map
-read, with the same field names and defaults, so a JAX config converts
+read, and of its multi-device section (:class:`ParallelConfig`), with the
+same field names and defaults, so a JAX config converts
 one-to-one (``utils.convert.config_from_dict``), and of its loader of the
 reference's ``key=value`` ``parameters.txt`` (:func:`load_parameters_file`;
 an unknown key warns on stderr). The port keeps its own copy: it imports
@@ -266,8 +267,22 @@ class MapperConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh: the names of its data axis (frame pairs, pose-graph edges,
+    BoW rows and map slabs) and model axis (SegNet's channels), and their
+    sizes."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    dp: int = 1
+    tp: int = 1
+    keyframe_shards: int = 1
+    map_shards: int = 1
+
+
+@dataclass(frozen=True)
 class SlamConfig:
-    """The JAX package's ``SlamConfig`` but its multi-device section."""
+    """The JAX package's ``SlamConfig``."""
 
     camera: CameraConfig = field(default_factory=CameraConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
@@ -284,6 +299,7 @@ class SlamConfig:
     looper: LooperConfig = field(default_factory=LooperConfig)
     segnet: SegNetConfig = field(default_factory=SegNetConfig)
     mapper: MapperConfig = field(default_factory=MapperConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def replace(self, **kwargs: Any) -> "SlamConfig":
         return dataclasses.replace(self, **kwargs)

@@ -11,7 +11,8 @@ value back to the host.
 ``track_frames_batched`` (over ``window_core``) is the throughput mode: a
 window of B frame pairs runs every per-frame stage once on a leading batch
 dimension, and only the pitch Kalman filter and the pose state machine
-walk the B results in order.
+walk the B results in order. Given a process group, ``window_core`` runs
+one rank's block of the window's pairs (``parallel/sharded_frontend.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from semantic_slam_mapping_torch.config import SlamConfig
 from semantic_slam_mapping_torch.frontend import quadmatch, vo
@@ -27,6 +29,7 @@ from semantic_slam_mapping_torch.geometry import se3
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics, project
 from semantic_slam_mapping_torch.ops import sgbm
+from semantic_slam_mapping_torch.parallel.mesh import all_gather
 
 NOT_READY = 0
 OK = 1
@@ -148,8 +151,8 @@ def window_core(state: TrackerState,
                 prev_l: torch.Tensor, prev_r: torch.Tensor,
                 K: Intrinsics, generator: Optional[torch.Generator],
                 cfg: SlamConfig, picks: Union[torch.Tensor, Callable,
-                                              None] = None
-                ) -> Tuple[TrackerState, FrameResult]:
+                                              None] = None,
+                group=None) -> Tuple[TrackerState, FrameResult]:
     """The frontend over B frame pairs, already split into current and
     previous (B, H, W) images. SGBM, quad matching, RANSAC VO, the pitch
     measurement and the U-disparity pass each run once over the batch;
@@ -157,9 +160,28 @@ def window_core(state: TrackerState,
     velocity; the pitch Kalman filter, then the pose state machine, walk
     the B results in order. ``picks``: optional (B, R, 3) RANSAC samples,
     or a function of the pairs' (B,) valid-match counts that returns them
-    or None; None draws them from ``generator`` per pair. Returns the
-    final state and a FrameResult whose fields have a leading B."""
-    B = cur_l.shape[0]
+    or None; None draws them from ``generator``, (B, R, 3) uniforms at
+    once. Returns the final state and a FrameResult whose fields have a
+    leading B.
+
+    With a process ``group`` of n ranks (the JAX body's ``axis_name``),
+    the images are this rank's block of a window of n*B pairs, the rank's
+    index times B on: the per-pair stages run on the block, the pitch
+    measurements, motions and successes are all-gathered, and both
+    recurrences walk the whole window on every rank. ``picks`` (or the
+    function's argument, the gathered counts) then covers the whole
+    window, and the generator draws the whole window's uniforms, of which
+    the rank keeps its rows: every rank's generator stays in step, and the
+    samples are those of one device's window. The state, ``pose`` and
+    ``status`` cover the whole window; the other fields the block."""
+    B_local = cur_l.shape[0]
+    if group is None:
+        gather = lambda x: x                          # noqa: E731
+        lo, B = 0, B_local
+    else:
+        gather = lambda x: all_gather(x, group)      # noqa: E731
+        lo = dist.get_rank(group) * B_local
+        B = dist.get_world_size(group) * B_local
     sg = sgbm.compute(cur_l, cur_r, cfg.sgbm)
     disparity = torch.where(sg.valid, sg.disparity, 0.0)
 
@@ -169,8 +191,15 @@ def window_core(state: TrackerState,
         prev_right=prev_r, qcfg=cfg.quadmatch, gcfg=cfg.gftt,
         kcfg=cfg.klt, cur_disparity=disparity, flow_prior=fp)
 
+    n_valid = m.valid.sum(dim=-1)
     if callable(picks):
-        picks = picks(m.valid.sum(dim=-1))
+        picks = picks(gather(n_valid))
+    if picks is None:
+        u = torch.rand((B, cfg.vo.ransac_iters, 3), generator=generator,
+                       device=cur_l.device)
+        picks = vo.distinct3_from_uniform(u[lo:lo + B_local], n_valid)
+    elif group is not None:
+        picks = picks[lo:lo + B_local]
     res = vo.estimate_motion(m, K, generator, cfg.vo, picks=picks)
 
     # the pitch is measured per frame; the Kalman filter is sequential
@@ -178,23 +207,25 @@ def window_core(state: TrackerState,
     pitch_meas, line_a, line_b = uvd.measure_pitch(
         disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
         cfg.uvdisparity)
+    meas = gather(pitch_meas)
     kf = state.pitch_kf
     smooth = []
     for i in range(B):
-        kf = uvd.pitch_kalman_update(kf, pitch_meas[i:i + 1],
-                                     cfg.uvdisparity)
+        kf = uvd.pitch_kalman_update(kf, meas[i:i + 1], cfg.uvdisparity)
         smooth.append(kf.x[0])
-    pts_c = gstereo.correct_pitch(pts, torch.stack(smooth), cfg.camera)
+    pts_c = gstereo.correct_pitch(
+        pts, torch.stack(smooth)[lo:lo + B_local], cfg.camera)
     uv_res = uvd.detect_moving_objects(
         disparity, sg.valid, pts_c.roi,
         m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
         num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
         line_ab=(line_a, line_b))
 
+    T_delta, success = gather(res.T_delta), gather(res.success)
     poses, statuses = [], []
     for i in range(B):
         pose, velocity, lost, status = _integrate(
-            state, res.T_delta[i], res.success[i], cfg)
+            state, T_delta[i], success[i], cfg)
         state = state._replace(status=status, pose=pose, velocity=velocity,
                                lost_count=lost,
                                frame_index=state.frame_index + 1)
@@ -203,7 +234,7 @@ def window_core(state: TrackerState,
     state = state._replace(pitch_kf=kf)
     out = FrameResult(
         pose=torch.stack(poses), T_delta=res.T_delta,
-        status=torch.stack(statuses), n_matches=m.valid.sum(dim=-1),
+        status=torch.stack(statuses), n_matches=n_valid,
         n_inliers=res.n_inliers, moving_mask=uv_res.moving_mask,
         disparity=disparity, matches=m, vo_success=res.success,
         pitch=uv_res.pitch)

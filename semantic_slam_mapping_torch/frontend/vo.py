@@ -129,9 +129,16 @@ def _distinct3(gen: Optional[torch.Generator], n: torch.Tensor,
                count: int) -> torch.Tensor:
     """(..., count, 3) triples of distinct indices in [0, n) (n >= 3), for
     counts n of any batch shape."""
+    u = torch.rand(n.shape + (count, 3), generator=gen, device=n.device)
+    return distinct3_from_uniform(u, n)
+
+
+def distinct3_from_uniform(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The triples of :func:`_distinct3` from its uniform draws u
+    (n.shape + (count, 3)): a caller that draws a whole batch's u and keeps
+    a block of rows gets that block's triples of the whole draw."""
     n = torch.clamp(n, min=3)
     hi = torch.stack([n, n - 1, n - 2], dim=-1)[..., None, :]
-    u = torch.rand(n.shape + (count, 3), generator=gen, device=n.device)
     r = torch.minimum(torch.floor(u * hi).long(), hi - 1)
     i0 = r[..., 0]
     i1 = r[..., 1] + (r[..., 1] >= i0).long()

@@ -45,6 +45,15 @@ batched frontend pass (``tracker.track_frames_batched``), then the host
 work above per frame in order; a LOST frame inside the window is
 relocalised and the later frames of the window move with it.
 
+Mesh mode (``SlamSystem(..., mesh=make_mesh(...))``, one process a device,
+every rank fed the same frames): the window's pairs split over the mesh's
+data axis (``parallel/sharded_frontend.py``) and their per-pair results
+are all-gathered, so every rank makes the same keyframe decisions; loop
+scoring splits the BoW database's rows (``parallel/sharded_bow.py``), the
+pose-graph solve the edges (``parallel/sharded_pcg.py``), and the map is
+the slab-sharded ``parallel/sharded_map.ShardedGlobalMap``. The host
+bookkeeping runs the same on every rank.
+
 Deferred results are copied to pinned host memory behind a CUDA event as
 soon as they are queued, and read at the next epoch, so edges land one
 epoch late exactly as in the JAX package. The pose graph and the keyframe
@@ -79,6 +88,11 @@ from semantic_slam_mapping_torch.mapping.native import NativeVoxelMap
 from semantic_slam_mapping_torch.models import segnet as segnet_mod
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops import orb
+from semantic_slam_mapping_torch.parallel import mesh as pmesh
+from semantic_slam_mapping_torch.parallel import sharded_bow, sharded_pcg
+from semantic_slam_mapping_torch.parallel.sharded_frontend import (
+    gather_result, track_frames_sharded)
+from semantic_slam_mapping_torch.parallel.sharded_map import ShardedGlobalMap
 from semantic_slam_mapping_torch.utils.logging import get_logger
 from semantic_slam_mapping_torch.utils.timing import StageTimer
 
@@ -319,13 +333,20 @@ class SlamSystem:
     ``mapping/native.py``); ``cfg.segnet.online`` labels keyframes that
     bring no labels with SegNet (``cfg.segnet.weights``, or a network drawn
     from ``seed``). ``rgbd`` selects the RGB-D frontend, fed by
-    ``process_frame_rgbd`` and ``process_stream_rgbd``."""
+    ``process_frame_rgbd`` and ``process_stream_rgbd``. ``mesh`` (a
+    ``parallel.mesh.make_mesh`` over ``device``'s type) runs the mesh mode
+    of the module's docstring; the map is then the sharded one."""
 
     def __init__(self, cfg: SlamConfig,
                  vocab: Optional[lp.Vocabulary] = None, seed: int = 0,
                  enable_mapping: bool = False,
-                 device: str | torch.device = "cuda", rgbd: bool = False):
+                 device: str | torch.device = "cuda", rgbd: bool = False,
+                 mesh=None):
         self.device = resolve(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a system on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.cfg = cfg
         self.K = Intrinsics.from_config(cfg.camera)
         self.rgbd = rgbd
@@ -401,7 +422,9 @@ class SlamSystem:
         # once per keyframe, moved by the current pose at each insert
         self._cloud_cache: dict = {}
         if enable_mapping:
-            self.map = NativeVoxelMap(cfg.mapper.resolution)
+            self.map = (ShardedGlobalMap(mesh, cfg.mapper.resolution)
+                        if mesh is not None
+                        else NativeVoxelMap(cfg.mapper.resolution))
         self._segnet = None
         if cfg.segnet.online:
             if cfg.segnet.weights:
@@ -591,9 +614,15 @@ class SlamSystem:
             self.frame_count += 1
             self._append_anchor(np.eye(4))
         with self.timer.stage("window"):
-            self.state, out = tracker.track_frames_batched(
-                self.state, lefts, rights, self.K, self.generator, self.cfg,
-                picks=self._window_picks)
+            if self.mesh is not None:
+                self.state, out = track_frames_sharded(
+                    self.state, lefts, rights, self.K, self.generator,
+                    self.cfg, self.mesh, picks=self._window_picks)
+                out = gather_result(out, self.mesh)
+            else:
+                self.state, out = tracker.track_frames_batched(
+                    self.state, lefts, rights, self.K, self.generator,
+                    self.cfg, picks=self._window_picks)
         self._prev = (lefts[-1], rights[-1])
         self._last_disparity = out.disparity[-1]
         self._dispatched += B
@@ -1058,10 +1087,22 @@ class SlamSystem:
         ids[:n] = [k.frame_index for k in self.keyframes[:n]]
         db_valid = np.arange(cap) < n
         with self.timer.stage("loops/score"):
-            scores_dev, mask_dev = lp.get_possible_loops_sparse(
-                lp.SparseBow(*kf.bow_dev), self._db_idx, self._db_w,
-                _upload(ids, self.device), _upload(db_valid, self.device),
-                kf.frame_index, cfg.min_sim_score, cfg.min_interval)
+            ids, db_valid = (_upload(ids, self.device),
+                             _upload(db_valid, self.device))
+            # under a mesh the rows split over the data axis when they
+            # divide by it (the capacity is a power of two)
+            if (self.mesh is not None
+                    and cap % pmesh.axis_size(self.mesh) == 0):
+                scores_dev, mask_dev = \
+                    sharded_bow.get_possible_loops_sparse_sharded(
+                        *kf.bow_dev, self._db_idx, self._db_w, ids,
+                        db_valid, kf.frame_index, self.mesh,
+                        cfg.min_sim_score, cfg.min_interval)
+            else:
+                scores_dev, mask_dev = lp.get_possible_loops_sparse(
+                    lp.SparseBow(*kf.bow_dev), self._db_idx, self._db_w,
+                    ids, db_valid, kf.frame_index, cfg.min_sim_score,
+                    cfg.min_interval)
         read = _stage_to_host([scores_dev, mask_dev])
 
         def pick_and_dispatch():
@@ -1107,10 +1148,16 @@ class SlamSystem:
                 self.graph.edge_i[:ne], self.graph.edge_j[:ne],
                 self.graph.edge_T[:ne], self.graph.edge_info[:ne],
                 self.graph.edge_valid[:ne], self.graph.edge_is_loop[:ne])
-            table = pg.vertex_edge_table(host.edge_i, host.edge_j,
-                                         host.edge_valid, nv)
             g = pg.PoseGraph(*(_upload(a, self.device) for a in host))
-            g = pg.optimize(g, mask_of(g), cfg, iters=iters, table=table)
+            if self.mesh is not None:
+                # the edges split over the mesh's data axis
+                g = sharded_pcg.optimize_sharded(g, mask_of(g), self.mesh,
+                                                 cfg, iters=iters)
+            else:
+                table = pg.vertex_edge_table(host.edge_i, host.edge_j,
+                                             host.edge_valid, nv)
+                g = pg.optimize(g, mask_of(g), cfg, iters=iters,
+                                table=table)
             self.graph.poses[:nv] = g.poses.cpu().numpy()
 
         if force_global or self.loop_error > cfg.loop_accumulate_error:

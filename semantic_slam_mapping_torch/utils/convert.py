@@ -21,9 +21,8 @@ from semantic_slam_mapping_torch.io.synthetic import World
 
 
 def config_from_dict(d: Mapping[str, Any]) -> cfg_mod.SlamConfig:
-    """``dataclasses.asdict`` of a JAX ``SlamConfig`` -> the port's config.
-    The multi-device section (parallel) is dropped; a field the port does
-    not know raises."""
+    """``dataclasses.asdict`` of a JAX ``SlamConfig`` -> the port's config,
+    section by section; a field the port does not know raises."""
     sections = {}
     for f in dataclasses.fields(cfg_mod.SlamConfig):
         if f.name in d:

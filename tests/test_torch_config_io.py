@@ -4,7 +4,7 @@ metrics against the JAX package.
 Test 1: ``load_parameters_file`` on a reference-format text with every key
 of ``_KEY_MAP``, ``camera.d0..d4``, comments, a line without '=' and an
 unknown key: the config equals JAX's field by field (``dataclasses.asdict``,
-the multi-device section aside) and the unknown key's warning is printed on
+the multi-device section too) and the unknown key's warning is printed on
 stderr; ``utils.convert.config_from_dict`` of JAX's config equals it too.
 
 Test 2: the KITTI pose writer and reader round trip (within the written
@@ -54,9 +54,9 @@ def test_parameters_file_matches_jax(tmp_path, capsys):
     j = jcfg.load_parameters_file(path)
     err_j = capsys.readouterr().err
     assert "unknown parameter 'mystery_key'" in err_t and err_t == err_j
-    jd = dataclasses.asdict(j)
-    jd.pop("parallel")
-    assert dataclasses.asdict(t) == jd
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(tcfg.ParallelConfig()) == dataclasses.asdict(
+        jcfg.ParallelConfig())
     assert t.camera.d == (0.01, 0.02, 0.03, 0.04, 0.05)
     assert t.camera.fx != tcfg.CameraConfig().fx
     assert convert.config_from_dict(dataclasses.asdict(j)) == t

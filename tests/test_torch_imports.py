@@ -2,7 +2,8 @@
 the JAX package, nor Pillow (checked in a fresh interpreter, since this
 test process has them loaded); the walk reaches every module of the
 port, the map, SegNet, the checkpoint, the command line, the dataset
-readers, the RGB-D tracker and the loggers among them."""
+readers, the RGB-D tracker, the loggers and the multi-device modules among
+them."""
 
 import pkgutil
 import subprocess
@@ -35,7 +36,9 @@ def test_port_imports_no_jax():
         "models.segnet", "utils.checkpoint", "cli", "io.png", "io.frame",
         "io.gt_pose", "io.kitti", "io.tum", "utils.plot",
         "frontend.rgbd_tracker", "frontend.quadmatch_desc",
-        "utils.logging")} <= names
+        "utils.logging", "parallel.mesh", "parallel.sharded_pcg",
+        "parallel.sharded_bow", "parallel.sharded_frontend",
+        "parallel.sharded_map")} <= names
     expected = len(names)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
