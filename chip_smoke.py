@@ -34,16 +34,17 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    row's filter chosen as libpng chooses it, poses.txt, and a
    parameters.txt with the KITTI 00-02 camera) goes through
    ``make-vocab``, ``slam --vocab --semantic-dir --gt --parameters`` and
-   ``pnp``; a TUM-layout directory of the first 30 frames of the rgbd
+   ``pnp``; a TUM-layout directory of the first 20 frames of the rgbd
    phase's course scaled to a room (radius 2 m) at 480x640 (TUM fr1
    intrinsics, 16-bit depth at TUM's 5000 a metre with no reading past
    10 m, groundtruth.txt) through ``rgbd --gt``. Each must exit 0 and
-   write a trajectory of 30 rows whose ATE RMSE is under 0.3 m (slam),
-   1 m (pnp) or 0.3 m times the room's scale (rgbd); slam's traj.g2o must
-   read back and it must print its frames/s line; SGM must run twice per
-   tracked frame in slam and pnp. Prints frames/s, and the PNG decode time
-   a frame of the reader and of one 376x1241 grey frame written with
-   filter 0, with Paeth and with libpng's choice, on the host CPU.
+   write a trajectory of a row a frame whose ATE RMSE is under 0.3 m
+   (slam), 1 m (pnp) or 0.3 m times the room's scale (rgbd); slam's
+   traj.g2o must read back and it must print its frames/s line; SGM must
+   run twice per tracked frame in slam and pnp. Prints frames/s, and the
+   PNG decode time a frame of the reader and of one 376x1241 grey frame
+   written with filter 0, with Paeth and with libpng's choice, on the host
+   CPU.
 5. ``rgbd``: the whole RGB-D system on the card: 200 frames at 480x640
    (TUM fr1 intrinsics) of the loop world at radius 10 m (1.25 laps, the
    revisit from frame 160), gray, depth and the renderer's labels through
@@ -101,9 +102,9 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    exactly twice a window. Every pair must have a VO success, the ATE RMSE
    must be under 0.3 m, every aggregate must be a (8, 376, 1241, 80)
    bfloat16 batch, the results and the keyframes' images and labels must
-   be on the card, and the map must have voxels. The same 33 frames then
-   go through ``process_stream``; both frames/s and both ATEs are
-   printed. Last, one window's frontend is profiled: device-busy time,
+   be on the card, and the map must have voxels. The first 17 of the
+   frames then go through ``process_stream``; both frames/s and both ATEs
+   are printed. Last, one window's frontend is profiled: device-busy time,
    idle share and launches a frame.
 12. ``parity``: runs SGBM, an argmin with planted ties, quad matching, VO
    with fixed samples, ORB, the PnP gate, the pose-graph solve, the
@@ -171,7 +172,19 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    keys within 1%). Prints the four runs' frames/s, both ATEs, the
    collectives' calls and bytes, the card ms of one call of each at the
    path's shapes and the mesh run's collective time they add up to, and
-   K1's launches.
+   K1's launches. Then SegNet training sharded dp x tp
+   (``parallel/sharded_segnet.py``): first ``cli train-segnet --mesh`` for
+   50 steps at the ``train`` phase's size, width and batch as a
+   subprocess, which joins a world of one alone (it must print the (1, 1)
+   mesh line and its saved line, launch no SGM kernel, and write a
+   ``segnet.pkl`` that ``load_checkpoint`` reads; its stderr lines, seconds
+   and steps/s are printed); in the group, 3 sharded float32 steps against
+   3 meshless ones from the same start on the same (4, 192, 192, 3)
+   batches (TF32 off; the loss, the BatchNorm buffers and the parameters
+   within the CPU tests' tolerances after each step); and the sharded
+   bfloat16 step timed at (4, 192, 192, 3) and (4, 384, 480, 3) on the
+   ``train`` phase's inputs (CUDA events, launches, each collective's calls
+   and bytes a step, peak memory).
 
 ``python3 chip_smoke.py --phases kernels,window`` runs the named phases
 only (after ``device`` and ``build``) and prints no result line: a quick
@@ -226,7 +239,8 @@ from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
 from semantic_slam_mapping_torch.parallel import mesh as pmesh
 from semantic_slam_mapping_torch.parallel import (sharded_bow,
                                                   sharded_frontend,
-                                                  sharded_pcg)
+                                                  sharded_pcg,
+                                                  sharded_segnet)
 from semantic_slam_mapping_torch.parallel.sharded_map import ShardedGlobalMap
 from semantic_slam_mapping_torch.pipeline import SlamSystem
 from semantic_slam_mapping_torch.utils.metrics import ate_rmse
@@ -238,8 +252,11 @@ ROOT = Path(__file__).resolve().parent
 H, W = 376, 1248
 # KITTI 00-02's image width: the command line's frames
 W_KITTI = 1241
-# the cli phase: 30 frames of the street; the TUM directory at 480x640
-N_CLI = 30
+# the cli phase: 30 frames of the street (at 20 the slam command's ATE read
+# 0.70 m, median 0.16 m: finish() puts the newest frame at the last
+# keyframe's pose, ROADMAP section 3), 20 of the room for rgbd; the TUM
+# directory at 480x640
+N_CLI, N_CLI_TUM = 30, 20
 TUM_HW = (480, 640)
 TUM_FR1 = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3)
 # the cli phase's TUM directory: the rgbd course scaled to a room (the
@@ -302,10 +319,16 @@ JAX_W1_MIOU = (0.9532, 0.9280)
 # phase's size
 WINDOW_B = 8
 N_WINDOW = 4 * WINDOW_B + 1
+# the window phase's process_stream comparison: the first two windows
+N_WINDOW_STREAM = 2 * WINDOW_B + 1
 # the golden phase: the first 60 frames of the 500-frame golden circuit
 # (0.471 m a frame), its ATE bound 2% of the 27.8 m driven in 59 steps,
 # a libviso2-class odometry's drift
 N_GOLDEN = 60
+# cli train-segnet --mesh in the mesh phase
+MESH_TRAIN_STEPS = 50
+# the collectives of SlamSystem(mesh=...)
+SERVING_COLLECTIVES = ("all_gather", "all_reduce_sum", "ring_exchange")
 GOLDEN_ATE_BOUND_M = 0.56
 
 
@@ -738,7 +761,7 @@ def png_decode_ms(frame: np.ndarray, tmp: Path) -> dict:
 
 def phase_cli(card: str, device: str = "cuda", height: int = H,
               width: int = W_KITTI, n_frames: int = N_CLI,
-              tum_hw=TUM_HW) -> dict:
+              tum_hw=TUM_HW, tum_frames: int = N_CLI_TUM) -> dict:
     """The command line on a KITTI-layout and a TUM-layout directory."""
     # KITTI 00-02's camera, scaled for a rehearsal at another size
     cfg = SlamConfig() if width == W_KITTI else loop_camera(height, width)
@@ -780,7 +803,7 @@ def phase_cli(card: str, device: str = "cuda", height: int = H,
         launches["cli pnp"] = pnp_run["sgm_launches"]
 
         tum_cfg = tum_config(*tum_hw)
-        frames, gt = room_course(*render_rgbd_loop(tum_cfg, n_frames,
+        frames, gt = room_course(*render_rgbd_loop(tum_cfg, tum_frames,
                                                    *tum_hw, device))
         cam = tum_cfg.camera
         tum = tmp / "tum"
@@ -794,6 +817,7 @@ def phase_cli(card: str, device: str = "cuda", height: int = H,
 
     fields = dict(
         frames=n_frames, shape=[height, width], tum_shape=list(tum_hw),
+        tum_frames=tum_frames,
         seconds={r["command"]: r["seconds"] for r in (vocab, slam, pnp_run,
                                                       rgbd)},
         vocabulary=vocab["stdout"].strip(),
@@ -824,10 +848,10 @@ def phase_cli(card: str, device: str = "cuda", height: int = H,
         (pnp_run["report"] and pnp_run["report"]["frames"] == n_frames
          and pnp_run["report"]["ate_rmse_m"] < PNP_ATE_BOUND_M,
          f"pnp ATE line {pnp_run['report']}, bound {PNP_ATE_BOUND_M} m"),
-        (rgbd_traj.shape == (n_frames, 4, 4)
+        (rgbd_traj.shape == (tum_frames, 4, 4)
          and np.isfinite(rgbd_traj).all(),
          f"rgbd trajectory of shape {rgbd_traj.shape}"),
-        (rgbd["report"] and rgbd["report"]["frames"] == n_frames
+        (rgbd["report"] and rgbd["report"]["frames"] == tum_frames
          and rgbd["report"]["ate_rmse_m"] < ATE_BOUND_M * TUM_ROOM_SCALE,
          f"rgbd ATE line {rgbd['report']}, bound "
          f"{ATE_BOUND_M * TUM_ROOM_SCALE} m (the course's scale)"),
@@ -1192,9 +1216,22 @@ class CallCounter:
 
 def run_epoch(cfg: SlamConfig, frames, vocab, device: str):
     """The main path: process_stream(depth=6) then finish(), with the
-    kernel launch counts zeroed just before and read just after."""
+    kernel launch counts zeroed just before and read just after; and the
+    index of the frame being fed when the first loop edge and the first
+    global optimisation had been made (the stream runs up to 6 frames
+    ahead of them)."""
     system = SlamSystem(cfg, vocab=vocab, enable_mapping=True,
                         device=device)
+    first = {"loop_edge": None, "global": None}
+
+    def stream():
+        for i, frame in enumerate(frames):
+            for key, n in (("loop_edge", system.n_loop_edges),
+                           ("global", system.n_global_optimizations)):
+                if n and first[key] is None:
+                    first[key] = i
+            yield frame
+
     counter = CallCounter({
         "solve_pnp_lazy": (pnp, "solve_pnp_lazy"),
         "transform_sparse": (looper, "transform_sparse"),
@@ -1203,7 +1240,7 @@ def run_epoch(cfg: SlamConfig, frames, vocab, device: str):
     with counter:
         sgm_cuda.sgm_aggregate4.launches = 0
         t = time.time()
-        system.process_stream(frames, depth=6)
+        system.process_stream(stream(), depth=6)
         if device == "cuda":
             torch.cuda.synchronize()
         stream_s = time.time() - t
@@ -1215,7 +1252,9 @@ def run_epoch(cfg: SlamConfig, frames, vocab, device: str):
         launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
     return dict(system=system, traj=traj, stream_s=stream_s,
                 seconds=seconds, launches=launches, calls=counter.calls,
-                globals_before_finish=globals_before_finish)
+                globals_before_finish=globals_before_finish,
+                first_loop_edge_frame=first["loop_edge"],
+                first_global_frame=first["global"])
 
 
 def profile_epoch(system: SlamSystem) -> dict:
@@ -1271,6 +1310,8 @@ def phase_epoch(card: str, device: str = "cuda", height: int = H,
         loop_verify_log=system.loop_verify_log,
         global_optimizations=system.n_global_optimizations,
         global_optimizations_before_finish=run["globals_before_finish"],
+        first_loop_edge_frame=run["first_loop_edge_frame"],
+        first_global_frame=run["first_global_frame"],
         local_optimizations=system.n_local_optimizations,
         recoveries=system.n_recoveries,
         vo_failures=sum(not f.vo_success for f in system.frame_log),
@@ -1669,20 +1710,22 @@ def phase_window(card: str, device: str = "cuda", height: int = H,
                system.state.pose, kf.left_dev, kf.right_dev,
                kf.disparity_dev, *kf.feats_dev]
 
+    # process_stream over the first two windows' frames, for its frames/s
+    n = N_WINDOW_STREAM
     stream = SlamSystem(cfg, enable_mapping=True, device=device)
     t = time.time()
-    stream.process_stream(zip(lefts, rights, [None] * N_WINDOW, labels),
-                          depth=6)
+    stream.process_stream(zip(lefts[:n], rights[:n], [None] * n,
+                              labels[:n]), depth=6)
     sync()
     stream_s = time.time() - t
-    ate_stream = ate_rmse(np.stack(stream.trajectory), gt)
+    ate_stream = ate_rmse(np.stack(stream.trajectory), gt[:n])
 
     fields = dict(
         frames=N_WINDOW, windows=len(wins), pairs_per_window=WINDOW_B,
         shape=[height, width], seconds=window_s,
         frames_per_s=N_WINDOW / window_s, ate_rmse_m=ate,
-        ate_bound_m=ATE_BOUND_M, stream_seconds=stream_s,
-        stream_frames_per_s=N_WINDOW / stream_s,
+        ate_bound_m=ATE_BOUND_M, stream_frames=n, stream_seconds=stream_s,
+        stream_frames_per_s=n / stream_s,
         stream_ate_rmse_m=ate_stream, launches=launches,
         aggregates=aggs, keyframes=len(system.keyframes),
         stream_keyframes=len(stream.keyframes), map_voxels=len(system.map),
@@ -1819,11 +1862,15 @@ def collective_ms(mesh, device: str, out: tracker.FrameResult,
 
 
 def phase_mesh(card: str, device: str = "cuda", height: int = H,
-               width: int = W_KITTI) -> dict:
+               width: int = W_KITTI, train_size: int = TRAIN_SIZE,
+               train_width: float = 1.0) -> dict:
     """The mesh mode on a world of one: SlamSystem(mesh=...) against the
     meshless system on the window phase's street, then the sharded solve,
-    BoW scan and map against their single-device counterparts."""
+    BoW scan and map against their single-device counterparts; then
+    SegNet training sharded: ``cli train-segnet --mesh``, sharded steps
+    against meshless ones, and the sharded step's cost."""
     cfg = SlamConfig() if width == W_KITTI else loop_camera(height, width)
+    training = {"cli": mesh_train_cli(card, device, train_size, train_width)}
     t0 = time.time()
     lefts, rights, labels, gt = render_street(cfg, N_WINDOW, height, width,
                                               device)
@@ -1838,9 +1885,135 @@ def phase_mesh(card: str, device: str = "cuda", height: int = H,
             mesh = pmesh.make_mesh(1, dp=1, tp=1, device=device)
             row = mesh_checks(cfg, vocab, lefts, rights, labels, gt, mesh,
                               device, card)
+            training["parity"] = sharded_step_parity(
+                mesh, device, train_size, train_width)
+            if device == "cuda":
+                training["step"] = [
+                    sharded_step_row(mesh, hw, TRAIN_BATCH, card)
+                    for hw in ((TRAIN_SIZE, TRAIN_SIZE), SEGNET_HW)]
         finally:
             dist.destroy_process_group()
     row["world"] = world
+    row["training"] = training
+    return row
+
+
+def mesh_train_cli(card: str, device: str, size: int, width: float,
+                   batch: int = TRAIN_BATCH,
+                   steps: int = MESH_TRAIN_STEPS) -> dict:
+    """``cli train-segnet --mesh`` as a subprocess, which joins a world of
+    one alone (no torchrun): its stderr lines, seconds and steps/s; it must
+    print the (1, 1) mesh, launch no SGM kernel and write a segnet.pkl that
+    ``load_checkpoint`` reads."""
+    with tempfile.TemporaryDirectory() as out:
+        res = run_cli(["train-segnet", "--mesh", "--size", str(size),
+                       "--width", str(width), "--steps", str(steps),
+                       "--batch", str(batch), "--out", out], device)
+        model, meta = segnet_mod.load_checkpoint(Path(out) / "segnet.pkl")
+    train_s = float(re.search(r"^trained \d+ steps in ([\d.]+) s",
+                              res["stderr"], re.M).group(1))
+    shape = re.search(r"^training on mesh (.*)$", res["stderr"], re.M)
+    row = dict(size=size, width_mult=width, steps=steps, batch=batch,
+               seconds=res["seconds"], train_seconds=train_s,
+               steps_per_s=steps / train_s,
+               stderr=res["stderr"].strip().splitlines(),
+               stdout=res["stdout"].strip(), miou=meta["miou"],
+               miou_heldout_world=meta["miou_heldout_world"],
+               sgm_launches=res["sgm_launches"])
+    emit("mesh", step="train-segnet --mesh", **row, card=card)
+    checks = [
+        (shape is not None and shape.group(1) == "{'data': 1, 'model': 1}",
+         f"the mesh line: {shape and shape.group(0)}"),
+        (res["stdout"].startswith("saved "), "no saved line"),
+        (model.width_mult == width and meta["steps"] == steps
+         and meta["train_size"] == size, f"the pickle's meta: {meta}"),
+        (res["sgm_launches"] == 0,
+         f"SGM launched {res['sgm_launches']} times in training")]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"mesh: train-segnet --mesh: {msg}")
+    return row
+
+
+def sharded_step_parity(mesh, device: str, size: int, width: float,
+                        batch: int = TRAIN_BATCH, lr: float = 3e-4,
+                        steps: int = 3) -> dict:
+    """``steps`` sharded float32 train steps against meshless ones from the
+    same seeded start on the same ``TrainBatches`` batches, with the
+    command's class weights (TF32 off: ``phase_device``). After each step:
+    the loss, the BatchNorm buffers and the gathered parameters, with the
+    CPU tests' tolerances (tests/test_torch_sharded_segnet.py): the first
+    loss within 2e-5 (relative) and its buffers within 1e-4 of their norm,
+    the later within 1e-2 and 0.1; each parameter within 2 lr per step
+    taken."""
+    par = Parity("mesh")
+    cfg = SegNetConfig(input_height=size, input_width=size,
+                       width_mult=width, dtype="float32")
+    ref = segnet_mod.create(cfg, torch.Generator().manual_seed(0)).to(device)
+    sharded = pmesh.shard_params(ref, mesh)
+    batches = cli_mod.TrainBatches(size, batch, device)
+    cw = torch.clamp(segnet_mod.median_frequency_weights(
+        batches.class_weight_batches(), ref.num_classes), max=4.0).to(device)
+    ref_step = segnet_mod.make_train_step(ref, segnet_mod.adam(ref, lr),
+                                          class_weights=cw)
+    sharded_step = sharded_segnet.make_sharded_train_step(
+        sharded, mesh, lr, class_weights=cw)
+
+    def rel(a, b):
+        return float((a - b).double().norm() / b.double().norm().clamp(
+            min=1e-30))
+
+    for i in range(steps):
+        x, y = batches.train(i)
+        want_loss = float(ref_step(x, y))
+        got_loss = float(sharded_step(x, y))
+        got = pmesh.gather_params(sharded, mesh).state_dict()
+        want = ref.state_dict()
+        buffers = [k for k in want if k.endswith((".bn.mean", ".bn.var"))]
+        loss_tol, stats_tol = (2e-5, 1e-4) if i == 0 else (1e-2, 0.1)
+        par.check(f"sharded f32 step {i}: loss against meshless (relative)",
+                  abs(got_loss - want_loss) / abs(want_loss), loss_tol,
+                  loss=got_loss, meshless_loss=want_loss,
+                  shape=[batch, size, size, 3], width_mult=width)
+        par.check(f"sharded f32 step {i}: BatchNorm buffers (largest "
+                  "relative to norm)",
+                  max(rel(got[k], want[k]) for k in buffers), stats_tol)
+        par.check(f"sharded f32 step {i}: parameters (largest abs)",
+                  max(float((got[k] - want[k]).abs().max())
+                      for k in want if k not in buffers),
+                  2 * lr * (i + 1))
+    return par.rows
+
+
+def sharded_step_row(mesh, size_hw, batch: int, card: str) -> dict:
+    """One full-width bfloat16 sharded train step on the mesh at (batch,
+    *size_hw, 3), on the inputs of ``train_step_row``: CUDA events (median
+    of 15 after 3 warm-ups), launches by the profiler, the calls and bytes
+    of each collective a step, peak memory."""
+    cfg = SegNetConfig(input_height=size_hw[0], input_width=size_hw[1])
+    model = pmesh.shard_params(segnet_mod.create(
+        cfg, torch.Generator().manual_seed(0)).cuda(), mesh)
+    step = sharded_segnet.make_sharded_train_step(
+        model, mesh, 3e-4,
+        class_weights=torch.ones(model.num_classes, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((batch, *size_hw, 3), generator=gen, device="cuda")
+    y = torch.randint(0, model.num_classes, (batch, *size_hw),
+                      generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(x, y), warmup=3, reps=15)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    pmesh.reset_counts()
+    launches = device_launches(lambda: step(x, y))
+    row = dict(shape=[batch, *size_hw, 3], dtype="bfloat16", width_mult=1.0,
+               mesh_shape=[pmesh.axis_size(mesh, pmesh.DATA_AXIS),
+                           pmesh.axis_size(mesh, pmesh.MODEL_AXIS)],
+               backend=dist.get_backend(), ms=ms,
+               launches_per_step=launches,
+               collectives_per_step=pmesh.counts(),
+               peak_memory_mb=peak_mb, card=card)
+    emit("mesh", step="sharded train step", **row)
     return row
 
 
@@ -1992,7 +2165,7 @@ def mesh_checks(cfg, vocab, lefts, rights, labels, gt, mesh, device,
          f"the mesh system's decisions differ: {same}"),
         (fields["ate_rmse_m"] < ATE_BOUND_M,
          f"ATE {fields['ate_rmse_m']} m >= {ATE_BOUND_M} m"),
-        (all(counts[k]["calls"] > 0 for k in counts),
+        (all(counts[k]["calls"] > 0 for k in SERVING_COLLECTIVES),
          f"a collective of the mesh path never ran: {counts}"),
         (all(r["max_abs_err"] <= 1e-4 and r["repeat_identical"]
              for r in solves.values()) and solves["ring"]["moved"] > 1e-2,
@@ -2556,7 +2729,8 @@ def main(argv=None) -> int:
         "window": window["launches"][row["name"]],
         "golden": golden["launches"][row["name"]],
         "mesh": mesh["launches"][row["name"]],
-        "train-segnet": train["sgm_launches"]}
+        "train-segnet": train["sgm_launches"],
+        "train-segnet --mesh": mesh["training"]["cli"]["sgm_launches"]}
     print(json.dumps({"kernels": [row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)

@@ -24,8 +24,12 @@ from a ``torch.Generator`` seeded 0 (the JAX package draws from
 another one; the JAX package's persistent XLA compilation cache has no
 counterpart (nothing here is compiled per shape); ``train-segnet`` draws
 its batches from torch generators seeded as the JAX package seeds its keys
-(other batches, the same families) and has no ``--mesh`` (the multi-device
-paths are not ported); ``segnet --checkpoint`` reads the pickle with
+(other batches, the same families), and with ``--mesh`` runs one process
+a device, started by torchrun (``torchrun --nproc-per-node N -m
+semantic_slam_mapping_torch.cli train-segnet --mesh ...``; NCCL between
+cards, gloo with ``--device cpu``) or alone as a world of one, where JAX
+shards one process over its local devices; rank 0 alone prints and writes
+``segnet.pkl``; ``segnet --checkpoint`` reads the pickle with
 ``models/segnet.load_checkpoint`` (the network of the pickle's own width
 and dtype); a trajectory plot's caption is a PNG text chunk, not drawn
 (``utils/plot.py``).
@@ -569,7 +573,14 @@ def cmd_train_segnet(args, batches=None, model=None):
     by their mean kept, per-class recall on the held-out world, then
     ``segnet.pkl`` with the JAX package's ``meta``. ``batches`` (default
     :class:`TrainBatches`) and ``model`` (default ``segnet.create`` from a
-    generator seeded 0) let a caller supply the data and the start."""
+    generator seeded 0) let a caller supply the data and the start.
+
+    With ``--mesh`` this process is one rank of a dp x tp mesh (torchrun's
+    environment, else a world of one; JAX's default shape) and trains the
+    start sharded by ``parallel.sharded_segnet`` on the same batches as
+    every rank; the evaluations run on the gathered parameters, and rank 0
+    alone prints and writes ``segnet.pkl``, whose layout is a meshless
+    run's."""
     import torch
 
     from semantic_slam_mapping_torch.config import SegNetConfig
@@ -580,6 +591,17 @@ def cmd_train_segnet(args, batches=None, model=None):
                            width_mult=args.width)
     if model is None:
         model = segnet.create(seg_cfg, torch.Generator().manual_seed(0))
+    mesh = None
+    if args.mesh:
+        from semantic_slam_mapping_torch.parallel import mesh as pmesh
+        from semantic_slam_mapping_torch.parallel import sharded_segnet
+        pmesh.initialize_distributed(device=args.device)
+        mesh = pmesh.make_mesh(device=args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None and lead:
+        shape = {axis: pmesh.axis_size(mesh, axis)
+                 for axis in mesh.mesh_dim_names}
+        print(f"training on mesh {shape}", file=sys.stderr)
     model = model.to(args.device)
     if batches is None:
         batches = TrainBatches(args.size, args.batch, args.device)
@@ -589,40 +611,57 @@ def cmd_train_segnet(args, batches=None, model=None):
     # boost capped at 4
     cw = torch.clamp(segnet.median_frequency_weights(
         batches.class_weight_batches(), n_classes), max=4.0)
-    print("class weights:", np.round(cw.numpy(), 2), file=sys.stderr)
-    step = segnet.make_train_step(model, segnet.adam(model, args.lr),
-                                  class_weights=cw.to(args.device))
+    if lead:
+        print("class weights:", np.round(cw.numpy(), 2), file=sys.stderr)
+    if mesh is None:
+        step = segnet.make_train_step(model, segnet.adam(model, args.lr),
+                                      class_weights=cw.to(args.device))
+        full = lambda: model                        # noqa: E731
+    else:
+        model = pmesh.shard_params(model, mesh)
+        step = sharded_segnet.make_sharded_train_step(
+            model, mesh, args.lr, class_weights=cw.to(args.device))
+        full = lambda: pmesh.gather_params(model, mesh)   # noqa: E731
     hold_x, hold_y = batches.holdout()
     ho_x, ho_y = batches.heldout_world()
 
-    def eval_miou(x, y):
-        pred = segnet.infer(model.eval(), x)
+    def eval_miou(net, x, y):
+        pred = segnet.infer(net.eval(), x)
         return float(segnet.miou(pred, y, n_classes))
 
     best = (-1.0, None)   # (mean of the two eval mIoUs, state)
+    net = None
     t0 = time.time()
     for it in range(args.steps):
         x, y = batches.train(it)
         loss = step(x, y)
         if it % 25 == 0 or it == args.steps - 1:
-            mh = eval_miou(hold_x, hold_y)
-            mw = eval_miou(ho_x, ho_y)
+            net = full()    # on a mesh, every rank joins the gather
+            if not lead:
+                continue
+            mh = eval_miou(net, hold_x, hold_y)
+            mw = eval_miou(net, ho_x, ho_y)
             if 0.5 * (mh + mw) > best[0]:
                 best = (0.5 * (mh + mw),
                         {k: v.detach().clone()
-                         for k, v in model.state_dict().items()})
+                         for k, v in net.state_dict().items()})
             print(f"step {it}: loss {float(loss):.4f} holdout mIoU "
                   f"{mh:.3f} heldout-world mIoU {mw:.3f}",
                   file=sys.stderr, flush=True)
     train_s = time.time() - t0
+    if mesh is not None:
+        model = net if net is not None else full()
+        torch.distributed.destroy_process_group()
+        if not lead:
+            return
     print(f"trained {args.steps} steps in {train_s:.2f} s "
           f"({args.steps / max(train_s, 1e-9):.3f} steps/s)",
           file=sys.stderr)
     # ship the best-by-eval checkpoint, not the last step
     if best[1] is not None:
         model.load_state_dict(best[1])
-    final_miou = eval_miou(hold_x, hold_y)
-    world_miou = eval_miou(ho_x, ho_y)
+    final_miou = eval_miou(model, hold_x, hold_y)
+    world_miou = eval_miou(model, ho_x, ho_y)
 
     pred = segnet.infer(model.eval(), ho_x).cpu().numpy()
     gt = ho_y.cpu().numpy()
@@ -734,6 +773,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, default=128)
     p.add_argument("--width", type=float, default=1.0,
                    help="channel width multiplier (slim checkpoints)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard training dp x tp over local devices")
     p.set_defaults(fn=cmd_train_segnet)
     return ap
 

@@ -78,13 +78,28 @@ def max_unpool(pooled: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
     return w.reshape(B, Hh * 2, Wh * 2, C)
 
 
-def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
-               dtype: torch.dtype) -> torch.Tensor:
-    """3x3 'SAME' convolution of NHWC ``x`` in ``dtype`` (kernel cast to
-    it), then the bias added in ``dtype``."""
-    w = conv.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """3x3 'SAME' convolution of NHWC ``x`` by the (cout, cin, 3, 3)
+    ``weight`` in ``dtype`` (kernel cast to it), then ``bias`` added in
+    ``dtype``."""
+    w = weight.to(dtype).contiguous(memory_format=torch.channels_last)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
-    return y + conv.bias.to(dtype)
+    return y + bias.to(dtype)
+
+
+def promote(y: torch.Tensor) -> torch.Tensor:
+    """``y`` in at least float32, as Flax's BatchNorm promotes (float64
+    stays float64)."""
+    return y.to(torch.promote_types(y.dtype, torch.float32))
+
+
+def normalize(yf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Flax's BatchNorm of the promoted ``yf`` by the statistics ``mean``
+    and ``var`` (the caller casts the result back)."""
+    mul = torch.rsqrt(var + _BN_EPS) * scale
+    return (yf - mean) * mul + bias
 
 
 class BatchNorm(nn.Module):
@@ -110,20 +125,22 @@ class BatchNorm(nn.Module):
         self.eval()
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        # at least float32, as Flax promotes (float64 stays float64)
-        yf = y.to(torch.promote_types(y.dtype, torch.float32))
+        yf = promote(y)
         if self.training:
             mean = yf.mean(dim=(0, 1, 2))
             var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                m = _BN_MOMENTUM
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            self.update(mean, var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + _BN_EPS) * self.scale
-        return ((yf - mean) * mul + self.bias).to(y.dtype)
+        return normalize(yf, mean, var, self.scale, self.bias).to(y.dtype)
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running buffers towards a batch's statistics."""
+        m = _BN_MOMENTUM
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        self.var.copy_(m * self.var + (1 - m) * var)
 
 
 class ConvBNRelu(nn.Module):
@@ -136,7 +153,8 @@ class ConvBNRelu(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(_conv_nhwc(x, self.conv, self.dtype)))
+        return torch.relu(self.bn(conv_nhwc(x, self.conv.weight,
+                                            self.conv.bias, self.dtype)))
 
 
 class SegNet(nn.Module):
@@ -188,7 +206,8 @@ class SegNet(nn.Module):
             for _ in range(n_convs):
                 x = next(layers)(x)
         # float32 logits, as the JAX module returns (float64 stays float64)
-        return _conv_nhwc(x, self.classifier, self.dtype).to(
+        return conv_nhwc(x, self.classifier.weight, self.classifier.bias,
+                         self.dtype).to(
             torch.promote_types(self.dtype, torch.float32))
 
 

@@ -38,7 +38,7 @@ def test_port_imports_no_jax():
         "frontend.rgbd_tracker", "frontend.quadmatch_desc",
         "utils.logging", "parallel.mesh", "parallel.sharded_pcg",
         "parallel.sharded_bow", "parallel.sharded_frontend",
-        "parallel.sharded_map")} <= names
+        "parallel.sharded_map", "parallel.sharded_segnet")} <= names
     expected = len(names)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

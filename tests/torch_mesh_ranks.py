@@ -1,13 +1,14 @@
 """Rank bodies of the port's multi-device tests
-(``tests/test_torch_{parallel,sharded_frontend,sharded_map}.py``).
+(``tests/test_torch_{parallel,sharded_frontend,sharded_map,
+sharded_segnet,train_cli_mesh}.py``).
 
 A test writes its inputs to ``inputs.npz`` in a temporary directory and
 calls :func:`run_ranks`, which spawns n processes over gloo (a ``file://``
-rendezvous in that directory, one CPU thread each); rank r runs one of the
-bodies below and writes what it computed to ``out_r{r}.npz``, which the
-test then holds to the JAX package and to the port's single-device path.
-The ranks import torch and the port only: they run no ``conftest.py`` and
-never import JAX.
+rendezvous in that directory, one CPU thread each; with ``init=False`` the
+body joins the group itself); rank r runs one of the bodies below and
+writes what it computed to ``out_r{r}.npz``, which the test then holds to
+the JAX package and to the port's single-device path. The ranks import
+torch and the port only: they run no ``conftest.py`` and never import JAX.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ import torch
 JOIN_TIMEOUT_S = 150
 
 
-def run_ranks(body: str, n: int, tmp: Path) -> list:
+def run_ranks(body: str, n: int, tmp: Path, init: bool = True) -> list:
     """Run ``body`` on n ranks; returns each rank's outputs (dicts of
     arrays). Raises if a rank fails or does not finish in time."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(body, r, n, str(tmp)))
+    procs = [ctx.Process(target=_rank, args=(body, r, n, str(tmp), init))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -49,18 +50,19 @@ def run_ranks(body: str, n: int, tmp: Path) -> list:
     return out
 
 
-def _rank(body: str, rank: int, n: int, tmp: str) -> None:
+def _rank(body: str, rank: int, n: int, tmp: str, init: bool) -> None:
     import torch.distributed as dist
 
     from semantic_slam_mapping_torch.parallel import mesh as pmesh
 
     torch.set_num_threads(1)
     tmp = Path(tmp)
-    world = pmesh.initialize_distributed(
-        f"file://{tmp / f'store_{body}_{n}'}", n, rank, device="cpu")
-    assert world == n
-    # a second call is a no-op
-    assert pmesh.initialize_distributed(device="cpu") == n
+    if init:
+        world = pmesh.initialize_distributed(
+            f"file://{tmp / f'store_{body}_{n}'}", n, rank, device="cpu")
+        assert world == n
+        # a second call is a no-op
+        assert pmesh.initialize_distributed(device="cpu") == n
     try:
         with np.load(tmp / "inputs.npz") as f:
             inputs = dict(f)
@@ -70,7 +72,8 @@ def _rank(body: str, rank: int, n: int, tmp: str) -> None:
         assert not jax_loaded, jax_loaded
         np.savez(tmp / f"out_r{rank}.npz", **out)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _t(a, dtype=None) -> torch.Tensor:
@@ -295,3 +298,138 @@ def sharded_global_map(inputs: dict, rank: int, n: int) -> dict:
     else:
         smap.as_arrays()       # the export gathers on every rank
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded_segnet.py
+
+# the meshes of sharded_grads by world size: ((dp, tp), batch, classes)
+GRAD_CASES = {2: (((1, 2), 4, 12), ((2, 1), 4, 12), ((2, 1), 3, 12),
+                  ((1, 2), 4, 11)),
+              3: (((1, 3), 4, 12),),
+              4: (((2, 2), 4, 12), ((1, 4), 4, 12))}
+
+
+def grad_case_key(shape, batch: int, classes: int) -> str:
+    return f"{shape[0]}x{shape[1]}_b{batch}_c{classes}"
+
+
+def segnet_start(inputs: dict, dtype: torch.dtype, classes: int = 12):
+    """The full SegNet of the inputs' start (``state.<name>`` entries,
+    the JAX package's initial parameters carried across) in ``dtype``,
+    its classifier cut to ``classes``."""
+    from semantic_slam_mapping_torch.models import segnet
+
+    model = segnet.SegNet(num_classes=classes, dtype=dtype,
+                          width_mult=float(inputs["width"])).to(dtype)
+    state = {k[len("state."):]: _t(v) for k, v in inputs.items()
+             if k.startswith("state.")}
+    for k in ("classifier.weight", "classifier.bias"):
+        state[k] = state[k][:classes]
+    model.load_state_dict(state)
+    return model
+
+
+def full_grads(model, mesh) -> dict:
+    """The gradients of a sharded model's parameters, split ones gathered
+    over the model axis."""
+    from semantic_slam_mapping_torch.parallel import mesh as pmesh
+
+    group = pmesh.axis_group(mesh, pmesh.MODEL_AXIS)
+    return {name: (pmesh.all_gather(p.grad, group)
+                   if model.shardings[name] is not None else p.grad)
+            for name, p in model.named_parameters()}
+
+
+def sharded_grads(inputs: dict, rank: int, n: int) -> dict:
+    """The float64 sharded loss, gradients (gathered) and the BatchNorm
+    buffers after the train-mode forward, on each mesh of
+    ``GRAD_CASES[n]``; and the shardings of a full-width SegNet on the
+    world's (1, n) mesh."""
+    from semantic_slam_mapping_torch.models import segnet
+    from semantic_slam_mapping_torch.parallel import mesh as pmesh
+    from semantic_slam_mapping_torch.parallel import sharded_segnet as ss
+
+    out = {}
+    for shape, batch, classes in GRAD_CASES[n]:
+        key = grad_case_key(shape, batch, classes)
+        mesh = pmesh.make_mesh(n, *shape, device="cpu")
+        model = pmesh.shard_params(
+            segnet_start(inputs, torch.float64, classes), mesh)
+        pmesh.reset_counts()
+        loss = ss.loss_and_grads(
+            model, _t(inputs["images"][:batch]),
+            _t(inputs["labels"][:batch] % classes), mesh,
+            label_valid=_t(inputs["valid"][:batch]),
+            class_weights=_t(inputs["class_weights"][:classes],
+                             torch.float64))
+        counts = pmesh.counts()
+        images = _t(inputs["images"][:batch])
+        assert pmesh.replicated(mesh)(images) is images
+        out[f"{key}/rows"] = pmesh.batch_sharding(mesh)(images).numpy()
+        out[f"{key}/loss"] = loss.numpy()
+        for k in ("all_gather", "all_reduce_sum", "reduce_scatter"):
+            out[f"{key}/calls.{k}"] = np.array(counts[k]["calls"])
+        for name, g in full_grads(model, mesh).items():
+            out[f"{key}/grad.{name}"] = g.numpy()
+        for name, b in pmesh.gather_params(model, mesh).named_buffers():
+            out[f"{key}/buffer.{name}"] = b.numpy()
+    wide = pmesh.param_shardings(segnet.SegNet(width_mult=1.0),
+                                 pmesh.make_mesh(n, 1, n, device="cpu"))
+    out["full_width_split"] = np.array(
+        [name for name, dim in wide.items() if dim is not None])
+    return out
+
+
+def sharded_adam(inputs: dict, rank: int, n: int) -> dict:
+    """Three sharded Adam steps on a (2, 2) mesh from the inputs' start:
+    twice in float32, once in float64; after each step the loss and the
+    gathered state (parameters and buffers)."""
+    from semantic_slam_mapping_torch.parallel import mesh as pmesh
+    from semantic_slam_mapping_torch.parallel import sharded_segnet as ss
+
+    mesh = pmesh.make_mesh(n, 2, 2, device="cpu")
+    out = {}
+    for run, dtype in (("f32a", torch.float32), ("f32b", torch.float32),
+                       ("f64", torch.float64)):
+        model = pmesh.shard_params(segnet_start(inputs, dtype), mesh)
+        step = ss.make_sharded_train_step(
+            model, mesh, float(inputs["lr"]),
+            class_weights=_t(inputs["class_weights"]).to(dtype))
+        for i in range(3):
+            loss = step(_t(inputs[f"x{i}"]).to(dtype), _t(inputs[f"y{i}"]))
+            out[f"{run}/{i}/loss"] = loss.numpy()
+            full = pmesh.gather_params(model, mesh)
+            for name, v in full.state_dict().items():
+                out[f"{run}/{i}/state.{name}"] = v.numpy()
+            # a replicated parameter is the same on every model rank
+            for name, p in model.named_parameters():
+                if model.shardings[name] is None:
+                    out[f"{run}/{i}/replica.{name}"] = p.detach().numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_train_cli_mesh.py
+
+
+def train_cli_mesh(inputs: dict, rank: int, n: int) -> dict:
+    """``cli train-segnet --mesh --device cpu`` as torchrun starts it: the
+    rank's environment set, then the command with its stdout and stderr
+    captured."""
+    import contextlib
+    import io
+    import os
+
+    from semantic_slam_mapping_torch import cli
+
+    os.environ.update(MASTER_ADDR="localhost",
+                      MASTER_PORT=str(int(inputs["port"])),
+                      WORLD_SIZE=str(n), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        cli.main(list(inputs["argv"]) + ["--mesh"])
+    return {"stdout": np.array(stdout.getvalue()),
+            "stderr": np.array(stderr.getvalue())}
