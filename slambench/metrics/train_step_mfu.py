@@ -1,0 +1,15 @@
+"""The train step's share of the bf16 peak (%): 3 x the forward pass's
+counted operations a trained image, over the stretch's wall time."""
+
+from slambench.core import roofline
+
+NAME = "train_step.mfu"
+
+
+def read(trace, cell):
+    images = trace.counts.get("images", 0)
+    if not images or trace.window_s <= 0:
+        return None
+    p = cell.traffic
+    flops = images * roofline.segnet_train_flops(p["height"], p["width"])
+    return 100.0 * roofline.flops_bound_s(flops) / trace.window_s
