@@ -23,6 +23,7 @@ from semantic_slam_mapping_torch.config import PnpConfig
 from semantic_slam_mapping_torch.geometry import se3
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics, project
 from semantic_slam_mapping_torch.ops import matching
+from semantic_slam_mapping_torch.utils.timing import span
 
 
 class PnpResult(NamedTuple):
@@ -80,31 +81,34 @@ def solve_pnp(X: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     for _ in range(cfg.rounds):
         w_act = active.float() * valid_f
         for _ in range(cfg.iters_per_round):
-            P = se3.transform_points(T, X)
-            r = uv - project(K, P)                      # (..., N, 2)
-            J = _jacobian(P, K)                         # (..., N, 2, 6)
-            rn = torch.linalg.norm(r, dim=-1)
-            w = w_act * torch.clamp(delta / torch.clamp(rn, min=1e-9),
-                                    max=1.0)
-            Jw = J * w[..., None, None]
-            H = torch.einsum("...nri,...nrj->...ij", Jw, J) + 1e-6 * eye6
-            g = torch.einsum("...nri,...nr->...i", Jw, r)
-            d = -torch.linalg.solve_ex(H, g)[0]
-            ok = torch.all(torch.isfinite(d), dim=-1, keepdim=True)
-            T = se3.exp(torch.where(ok, d, 0.0)) @ T
+            with span("pnp/lm_step"):
+                P = se3.transform_points(T, X)
+                r = uv - project(K, P)                  # (..., N, 2)
+                J = _jacobian(P, K)                     # (..., N, 2, 6)
+                rn = torch.linalg.norm(r, dim=-1)
+                w = w_act * torch.clamp(delta / torch.clamp(rn, min=1e-9),
+                                        max=1.0)
+                Jw = J * w[..., None, None]
+                H = torch.einsum("...nri,...nrj->...ij", Jw, J) + 1e-6 * eye6
+                g = torch.einsum("...nri,...nr->...i", Jw, r)
+                d = -torch.linalg.solve_ex(H, g)[0]
+                ok = torch.all(torch.isfinite(d), dim=-1, keepdim=True)
+                T = se3.exp(torch.where(ok, d, 0.0)) @ T
         # re-gate between rounds: edges over the chi^2 threshold drop out,
         # and come back once they are under it again
-        r = _residuals(T, X, uv, K)
-        active = torch.sum(r * r, dim=-1) <= chi2_th
+        with span("pnp/regate"):
+            r = _residuals(T, X, uv, K)
+            active = torch.sum(r * r, dim=-1) <= chi2_th
 
-    r = _residuals(T, X, uv, K)
-    chi2_i = torch.sum(r * r, dim=-1)
-    inl = valid & (chi2_i <= chi2_th)
-    n_inl = torch.sum(inl, dim=-1)
-    rho = torch.where(chi2_i <= delta ** 2, chi2_i,
-                      2.0 * delta * torch.sqrt(chi2_i) - delta ** 2)
-    total = torch.sum(torch.where(inl, rho, 0.0), dim=-1)
-    finite = torch.all(torch.isfinite(T).flatten(-2), dim=-1)
+    with span("pnp/inliers"):
+        r = _residuals(T, X, uv, K)
+        chi2_i = torch.sum(r * r, dim=-1)
+        inl = valid & (chi2_i <= chi2_th)
+        n_inl = torch.sum(inl, dim=-1)
+        rho = torch.where(chi2_i <= delta ** 2, chi2_i,
+                          2.0 * delta * torch.sqrt(chi2_i) - delta ** 2)
+        total = torch.sum(torch.where(inl, rho, 0.0), dim=-1)
+        finite = torch.all(torch.isfinite(T).flatten(-2), dim=-1)
     return PnpResult(T=T, inliers=inl, n_inliers=n_inl,
                      success=(n_inl >= cfg.min_inliers) & finite, chi2=total)
 
@@ -119,15 +123,16 @@ def solve_pnp_lazy(desc_ref: torch.Tensor, xyz_ref: torch.Tensor,
     """ORB-match two frames, then PnP: the pose-graph edge gate. xyz_ref
     are the reference features' 3D points in the reference camera (no
     depth: valid_ref False)."""
-    m = matching.match_descriptors(desc_ref, desc_cur, valid_ref, valid_cur,
-                                   ratio=knn_ratio)
-    idx = torch.clamp(m.idx, 0, xy_cur.shape[-2] - 1)
-    batch = m.idx.shape[:-1]
-    uv = torch.gather(xy_cur.expand(batch + xy_cur.shape[-2:]), -2,
-                      idx[..., None].expand(idx.shape + (2,)))
-    pair_valid = m.valid & valid_ref
-    n_matches = torch.sum(pair_valid, dim=-1)
-    res = solve_pnp(xyz_ref, uv, pair_valid, K, T_init, cfg)
-    return PnpInformation(n_matches=n_matches, n_inliers=res.n_inliers,
-                          T=res.T,
-                          success=res.success & (n_matches >= cfg.min_matches))
+    with span("pnp/solve"):
+        m = matching.match_descriptors(desc_ref, desc_cur, valid_ref,
+                                       valid_cur, ratio=knn_ratio)
+        idx = torch.clamp(m.idx, 0, xy_cur.shape[-2] - 1)
+        batch = m.idx.shape[:-1]
+        uv = torch.gather(xy_cur.expand(batch + xy_cur.shape[-2:]), -2,
+                          idx[..., None].expand(idx.shape + (2,)))
+        pair_valid = m.valid & valid_ref
+        n_matches = torch.sum(pair_valid, dim=-1)
+        res = solve_pnp(xyz_ref, uv, pair_valid, K, T_init, cfg)
+        return PnpInformation(
+            n_matches=n_matches, n_inliers=res.n_inliers, T=res.T,
+            success=res.success & (n_matches >= cfg.min_matches))

@@ -32,6 +32,8 @@ import torch
 
 from semantic_slam_mapping_torch.config import PoseGraphConfig
 from semantic_slam_mapping_torch.geometry import se3
+from semantic_slam_mapping_torch.utils.device import to_device
+from semantic_slam_mapping_torch.utils.timing import span
 
 
 class PoseGraph(NamedTuple):
@@ -75,9 +77,9 @@ def _edge_jacobians(graph: PoseGraph
     inv_Tm = se3.inverse(graph.edge_T.double())
     # 25 arguments per edge: (d_i, d_j) = 0, then +-h along each of the 12
     steps = torch.zeros(25, 12, dtype=torch.float64, device=Ti.device)
-    k = torch.arange(12, device=Ti.device)
-    steps[1 + 2 * k, k] = _FD_STEP
-    steps[2 + 2 * k, k] = -_FD_STEP
+    h = _FD_STEP * torch.eye(12, dtype=torch.float64, device=Ti.device)
+    steps[1::2] = h
+    steps[2::2] -= h
     A = se3.exp(steps[:, :6]) @ Ti[:, None]                  # (E, 25, 4, 4)
     B = se3.exp(steps[:, 6:]) @ Tj[:, None]
     r = se3.log(inv_Tm[:, None] @ (se3.inverse(A) @ B))      # (E, 25, 6)
@@ -148,65 +150,68 @@ def _lm_optimize(graph: PoseGraph, free: torch.Tensor,
         return reduce_sum(torch.sum(torch.where(graph.edge_valid, c, 0.0)))
 
     poses = graph.poses
-    lam = torch.tensor(1e-2, device=dev)
+    lam = torch.full((), 1e-2, device=dev)
     for _ in range(iters):
-        r, J_i, J_j = _edge_jacobians(graph._replace(poses=poses))
-        w = _robust_weights(r, graph.edge_info, cfg.huber_delta) * valid_f
+        with span("pose_graph/linearize"):
+            r, J_i, J_j = _edge_jacobians(graph._replace(poses=poses))
+            w = _robust_weights(r, graph.edge_info, cfg.huber_delta) * valid_f
 
-        # block-Jacobi diagonal (also the LM damping metric)
-        Hi = torch.einsum("eri,erj->eij", J_i, J_i * w[:, None, None])
-        Hj = torch.einsum("eri,erj->eij", J_j, J_j * w[:, None, None])
-        blocks = reduce_sum(_vertex_sum(table, Hi, Hj))
-        diag = torch.diagonal(blocks, dim1=-2, dim2=-1)          # (M, 6)
+            # block-Jacobi diagonal (also the LM damping metric)
+            Hi = torch.einsum("eri,erj->eij", J_i, J_i * w[:, None, None])
+            Hj = torch.einsum("eri,erj->eij", J_j, J_j * w[:, None, None])
+            blocks = reduce_sum(_vertex_sum(table, Hi, Hj))
+            diag = torch.diagonal(blocks, dim1=-2, dim2=-1)      # (M, 6)
 
-        def matvec(x, lam=lam, w=w, J_i=J_i, J_j=J_j, diag=diag):
-            """(J^T W J + lam diag) x over the free vertices."""
-            xf = x * free
-            y = (torch.einsum("erk,ek->er", J_i, xf[ei])
-                 + torch.einsum("erk,ek->er", J_j, xf[ej])) * w[:, None]
-            out = reduce_sum(_vertex_sum(
-                table, torch.einsum("erk,er->ek", J_i, y),
-                torch.einsum("erk,er->ek", J_j, y)))
-            damp = lam * (diag + 1e-6) * xf
-            return (out + damp + 1e-6 * x) * free
+            def matvec(x, lam=lam, w=w, J_i=J_i, J_j=J_j, diag=diag):
+                """(J^T W J + lam diag) x over the free vertices."""
+                xf = x * free
+                y = (torch.einsum("erk,ek->er", J_i, xf[ei])
+                     + torch.einsum("erk,ek->er", J_j, xf[ej])) * w[:, None]
+                out = reduce_sum(_vertex_sum(
+                    table, torch.einsum("erk,er->ek", J_i, y),
+                    torch.einsum("erk,er->ek", J_j, y)))
+                damp = lam * (diag + 1e-6) * xf
+                return (out + damp + 1e-6 * x) * free
 
-        # gradient b = -J^T W r
-        wr = r * w[:, None]
-        b = -reduce_sum(_vertex_sum(
-            table, torch.einsum("erk,er->ek", J_i, wr),
-            torch.einsum("erk,er->ek", J_j, wr))) * free
+            # gradient b = -J^T W r
+            wr = r * w[:, None]
+            b = -reduce_sum(_vertex_sum(
+                table, torch.einsum("erk,er->ek", J_i, wr),
+                torch.einsum("erk,er->ek", J_j, wr))) * free
 
-        pre_blocks = (blocks + (lam * (diag + 1e-6))[:, :, None] * eye6
-                      + 1e-5 * eye6)
-        pre = torch.linalg.inv_ex(pre_blocks)[0]
+            pre_blocks = (blocks + (lam * (diag + 1e-6))[:, :, None] * eye6
+                          + 1e-5 * eye6)
+            pre = torch.linalg.inv_ex(pre_blocks)[0]
 
-        def apply_pre(v, pre=pre):
-            return torch.einsum("mij,mj->mi", pre, v) * free
+            def apply_pre(v, pre=pre):
+                return torch.einsum("mij,mj->mi", pre, v) * free
 
-        # ---- PCG ----
-        x = torch.zeros((M, 6), device=dev)
-        rr = b - matvec(x)
-        z = apply_pre(rr)
-        p = z
+            # ---- PCG ----
+            x = torch.zeros((M, 6), device=dev)
+            rr = b - matvec(x)
+            z = apply_pre(rr)
+            p = z
         for _ in range(cfg.pcg_iters):
-            Ap = matvec(p)
-            rz = torch.sum(rr * z)
-            alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-12)
-            x = x + alpha * p
-            rr = rr - alpha * Ap
-            z_new = apply_pre(rr)
-            beta = torch.sum(rr * z_new) / torch.clamp(rz, min=1e-12)
-            p = z_new + beta * p
-            z = z_new
+            with span("pose_graph/pcg_step"):
+                Ap = matvec(p)
+                rz = torch.sum(rr * z)
+                alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-12)
+                x = x + alpha * p
+                rr = rr - alpha * Ap
+                z_new = apply_pre(rr)
+                beta = torch.sum(rr * z_new) / torch.clamp(rz, min=1e-12)
+                p = z_new + beta * p
+                z = z_new
 
-        dx = torch.clamp(x, -1.0, 1.0)     # trust region on the se3 step
-        cand = se3.exp(dx) @ poses
-        cand = torch.where((free > 0)[..., None], cand, poses)
-        # accept/reject: only cost-decreasing steps are kept
-        accept = robust_cost(cand) < robust_cost(poses)
-        poses = torch.where(accept, cand, poses)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-6),
-                          torch.clamp(lam * 8.0, max=1e4))
+        with span("pose_graph/accept"):
+            dx = torch.clamp(x, -1.0, 1.0)     # trust region on the se3 step
+            cand = se3.exp(dx) @ poses
+            cand = torch.where((free > 0)[..., None], cand, poses)
+            # accept/reject: only cost-decreasing steps are kept
+            accept = robust_cost(cand) < robust_cost(poses)
+            poses = torch.where(accept, cand, poses)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-6),
+                              torch.clamp(lam * 8.0, max=1e4))
     return se3.orthonormalize(poses)
 
 
@@ -221,8 +226,9 @@ def optimize(graph: PoseGraph, free_mask: torch.Tensor,
         table = vertex_edge_table(graph.edge_i, graph.edge_j,
                                   graph.edge_valid, graph.poses.shape[0])
     free = (free_mask & graph.vertex_valid).float()[:, None]
-    poses = _lm_optimize(graph, free, cfg, iters,
-                         table.to(graph.poses.device))
+    with span("pose_graph/lm"):
+        poses = _lm_optimize(graph, free, cfg, iters,
+                             to_device(table, graph.poses.device))
     return graph._replace(poses=poses)
 
 

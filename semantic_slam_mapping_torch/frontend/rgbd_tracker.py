@@ -47,7 +47,7 @@ class RgbdTrackerState(NamedTuple):
     @classmethod
     def initial(cls, n_features: int, ref_frames: int = 5,
                 device: str | torch.device = "cuda") -> "RgbdTrackerState":
-        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+        i32 = lambda v: torch.full((), v, dtype=torch.int32, device=device)  # noqa: E731
         shape = (ref_frames, n_features)
         return cls(status=i32(NOT_READY), pose=se3.identity(device=device),
                    velocity=se3.identity(device=device), lost_count=i32(0),
@@ -150,5 +150,5 @@ def adjust(state: RgbdTrackerState, new_pose: torch.Tensor
     pts = se3.transform_points(C, state.ref_xyz_w.reshape(-1, 3))
     return state._replace(
         pose=new_pose, ref_xyz_w=pts.reshape(state.ref_xyz_w.shape),
-        lost_count=torch.tensor(0, dtype=torch.int32, device=dev),
-        status=torch.tensor(OK, dtype=torch.int32, device=dev))
+        lost_count=torch.zeros((), dtype=torch.int32, device=dev),
+        status=torch.full((), OK, dtype=torch.int32, device=dev))

@@ -28,8 +28,10 @@ from semantic_slam_mapping_torch.frontend import uvdisparity as uvd
 from semantic_slam_mapping_torch.geometry import se3
 from semantic_slam_mapping_torch.geometry import stereo as gstereo
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics, project
+from semantic_slam_mapping_torch.utils.device import to_device
 from semantic_slam_mapping_torch.ops import sgbm
 from semantic_slam_mapping_torch.parallel.mesh import all_gather
+from semantic_slam_mapping_torch.utils.timing import span
 
 NOT_READY = 0
 OK = 1
@@ -40,11 +42,11 @@ def _velocity_flow_prior(velocity: torch.Tensor, K: Intrinsics,
                          cfg: SlamConfig) -> torch.Tensor:
     """Image flow of a mid-depth point on the principal ray under the
     inverse of the last inter-frame motion (seeds the temporal KLT legs)."""
-    Xc = torch.tensor([[0.0, 0.0, 0.5 * cfg.camera.roiz]],
-                      device=velocity.device)
+    Xc = to_device([[0.0, 0.0, 0.5 * cfg.camera.roiz]], velocity.device,
+                   torch.float32)
     Xp = se3.transform_points(se3.inverse(velocity), Xc)
-    return project(K, Xp)[0] - torch.tensor([K.cx, K.cy],
-                                            device=velocity.device)
+    return project(K, Xp)[0] - to_device([K.cx, K.cy], velocity.device,
+                                         torch.float32)
 
 
 class TrackerState(NamedTuple):
@@ -59,7 +61,7 @@ class TrackerState(NamedTuple):
     def initial(cls, cfg: Optional[SlamConfig] = None,
                 device: str | torch.device = "cuda") -> "TrackerState":
         p0 = cfg.uvdisparity.kf_error_cov_post if cfg is not None else 1.0
-        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+        i32 = lambda v: torch.full((), v, dtype=torch.int32, device=device)  # noqa: E731
         return cls(status=i32(NOT_READY), pose=se3.identity(device=device),
                    velocity=se3.identity(device=device), lost_count=i32(0),
                    pitch_kf=uvd.PitchKalmanState.init(p0, device),
@@ -89,32 +91,38 @@ def track_frame(state: TrackerState,
     sg = sgbm.compute(cur_left, cur_right, cfg.sgbm)
     disparity = torch.where(sg.valid, sg.disparity, 0.0)
 
-    m = quadmatch.quad_match(
-        cur_left=cur_left, cur_right=cur_right,
-        prev_left=prev_left, prev_right=prev_right,
-        qcfg=cfg.quadmatch, gcfg=cfg.gftt, kcfg=cfg.klt,
-        cur_disparity=disparity,
-        flow_prior=_velocity_flow_prior(state.velocity, K, cfg))
+    with span("quadmatch"):
+        m = quadmatch.quad_match(
+            cur_left=cur_left, cur_right=cur_right,
+            prev_left=prev_left, prev_right=prev_right,
+            qcfg=cfg.quadmatch, gcfg=cfg.gftt, kcfg=cfg.klt,
+            cur_disparity=disparity,
+            flow_prior=_velocity_flow_prior(state.velocity, K, cfg))
 
-    res = vo.estimate_motion(m, K, generator, cfg.vo)
+    with span("vo/ransac"):
+        res = vo.estimate_motion(m, K, generator, cfg.vo)
 
     # measure the pitch, smooth it, rotate the points by the smoothed
     # pitch, re-filter the ROI, then segment the U-disparity
-    pts = gstereo.triangulate_image(K, disparity, cfg.camera)
-    pitch_meas, line_a, line_b = uvd.measure_pitch(
-        disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
-        cfg.uvdisparity)
-    kf = uvd.pitch_kalman_update(state.pitch_kf, pitch_meas[None],
-                                 cfg.uvdisparity)
-    pts_c = gstereo.correct_pitch(pts, kf.x[0], cfg.camera)
-    uv_res = uvd.detect_moving_objects(
-        disparity, sg.valid, pts_c.roi,
-        m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
-        num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
-        line_ab=(line_a, line_b))
+    with span("uv/pitch"):
+        pts = gstereo.triangulate_image(K, disparity, cfg.camera)
+        pitch_meas, line_a, line_b = uvd.measure_pitch(
+            disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
+            cfg.uvdisparity)
+    with span("uv/pitch_kalman"):
+        kf = uvd.pitch_kalman_update(state.pitch_kf, pitch_meas[None],
+                                     cfg.uvdisparity)
+    with span("uv/moving"):
+        pts_c = gstereo.correct_pitch(pts, kf.x[0], cfg.camera)
+        uv_res = uvd.detect_moving_objects(
+            disparity, sg.valid, pts_c.roi,
+            m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
+            num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
+            line_ab=(line_a, line_b))
 
-    new_pose, new_velocity, new_lost, new_status = _integrate(
-        state, res.T_delta, res.success, cfg)
+    with span("tracker/integrate"):
+        new_pose, new_velocity, new_lost, new_status = _integrate(
+            state, res.T_delta, res.success, cfg)
 
     new_state = TrackerState(
         status=new_status, pose=new_pose, velocity=new_velocity,
@@ -185,50 +193,56 @@ def window_core(state: TrackerState,
     sg = sgbm.compute(cur_l, cur_r, cfg.sgbm)
     disparity = torch.where(sg.valid, sg.disparity, 0.0)
 
-    fp = _velocity_flow_prior(state.velocity, K, cfg)
-    m = quadmatch.quad_match(
-        cur_left=cur_l, cur_right=cur_r, prev_left=prev_l,
-        prev_right=prev_r, qcfg=cfg.quadmatch, gcfg=cfg.gftt,
-        kcfg=cfg.klt, cur_disparity=disparity, flow_prior=fp)
+    with span("quadmatch"):
+        fp = _velocity_flow_prior(state.velocity, K, cfg)
+        m = quadmatch.quad_match(
+            cur_left=cur_l, cur_right=cur_r, prev_left=prev_l,
+            prev_right=prev_r, qcfg=cfg.quadmatch, gcfg=cfg.gftt,
+            kcfg=cfg.klt, cur_disparity=disparity, flow_prior=fp)
 
-    n_valid = m.valid.sum(dim=-1)
-    if callable(picks):
-        picks = picks(gather(n_valid))
-    if picks is None:
-        u = torch.rand((B, cfg.vo.ransac_iters, 3), generator=generator,
-                       device=cur_l.device)
-        picks = vo.distinct3_from_uniform(u[lo:lo + B_local], n_valid)
-    elif group is not None:
-        picks = picks[lo:lo + B_local]
-    res = vo.estimate_motion(m, K, generator, cfg.vo, picks=picks)
+    with span("vo/ransac"):
+        n_valid = m.valid.sum(dim=-1)
+        if callable(picks):
+            picks = picks(gather(n_valid))
+        if picks is None:
+            u = torch.rand((B, cfg.vo.ransac_iters, 3), generator=generator,
+                           device=cur_l.device)
+            picks = vo.distinct3_from_uniform(u[lo:lo + B_local], n_valid)
+        elif group is not None:
+            picks = picks[lo:lo + B_local]
+        res = vo.estimate_motion(m, K, generator, cfg.vo, picks=picks)
 
     # the pitch is measured per frame; the Kalman filter is sequential
-    pts = gstereo.triangulate_image(K, disparity, cfg.camera)
-    pitch_meas, line_a, line_b = uvd.measure_pitch(
-        disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
-        cfg.uvdisparity)
-    meas = gather(pitch_meas)
-    kf = state.pitch_kf
-    smooth = []
-    for i in range(B):
-        kf = uvd.pitch_kalman_update(kf, meas[i:i + 1], cfg.uvdisparity)
-        smooth.append(kf.x[0])
-    pts_c = gstereo.correct_pitch(
-        pts, torch.stack(smooth)[lo:lo + B_local], cfg.camera)
-    uv_res = uvd.detect_moving_objects(
-        disparity, sg.valid, pts_c.roi,
-        m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
-        num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
-        line_ab=(line_a, line_b))
+    with span("uv/pitch"):
+        pts = gstereo.triangulate_image(K, disparity, cfg.camera)
+        pitch_meas, line_a, line_b = uvd.measure_pitch(
+            disparity, sg.valid, pts.roi, K, cfg.sgbm.num_disparities,
+            cfg.uvdisparity)
+        meas = gather(pitch_meas)
+    with span("uv/pitch_kalman"):
+        kf = state.pitch_kf
+        smooth = []
+        for i in range(B):
+            kf = uvd.pitch_kalman_update(kf, meas[i:i + 1], cfg.uvdisparity)
+            smooth.append(kf.x[0])
+    with span("uv/moving"):
+        pts_c = gstereo.correct_pitch(
+            pts, torch.stack(smooth)[lo:lo + B_local], cfg.camera)
+        uv_res = uvd.detect_moving_objects(
+            disparity, sg.valid, pts_c.roi,
+            m.lc, m.valid & res.inliers, m.lc, m.valid & ~res.inliers, K,
+            num_disparities=cfg.sgbm.num_disparities, cfg=cfg.uvdisparity,
+            line_ab=(line_a, line_b))
 
     T_delta, success = gather(res.T_delta), gather(res.success)
     poses, statuses = [], []
     for i in range(B):
-        pose, velocity, lost, status = _integrate(
-            state, T_delta[i], success[i], cfg)
-        state = state._replace(status=status, pose=pose, velocity=velocity,
-                               lost_count=lost,
-                               frame_index=state.frame_index + 1)
+        with span("tracker/integrate"):
+            pose, velocity, lost, status = _integrate(
+                state, T_delta[i], success[i], cfg)
+            state = state._replace(status=status, pose=pose,
+                                   velocity=velocity, lost_count=lost,
+                                   frame_index=state.frame_index + 1)
         poses.append(pose)
         statuses.append(status)
     state = state._replace(pitch_kf=kf)
@@ -258,8 +272,8 @@ def adjust(state: TrackerState, new_pose: torch.Tensor) -> TrackerState:
     dev = state.pose.device
     return state._replace(
         pose=se3.orthonormalize(new_pose.to(dev, torch.float32)),
-        lost_count=torch.tensor(0, dtype=torch.int32, device=dev),
-        status=torch.tensor(OK, dtype=torch.int32, device=dev))
+        lost_count=torch.zeros((), dtype=torch.int32, device=dev),
+        status=torch.full((), OK, dtype=torch.int32, device=dev))
 
 
 def lost_recover(state: TrackerState,

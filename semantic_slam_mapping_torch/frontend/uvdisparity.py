@@ -19,6 +19,7 @@ from semantic_slam_mapping_torch.config import UVDisparityConfig
 from semantic_slam_mapping_torch.geometry.camera import Intrinsics
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops.components import connected_components
+from semantic_slam_mapping_torch.utils.device import to_device
 
 
 class PitchKalmanState(NamedTuple):
@@ -37,8 +38,8 @@ class PitchKalmanState(NamedTuple):
 def pitch_kalman_update(state: PitchKalmanState, measurement: torch.Tensor,
                         cfg: UVDisparityConfig) -> PitchKalmanState:
     dev = state.x.device
-    F = torch.tensor([[1.0, 1.0], [0.0, 1.0]], device=dev)
-    Hm = torch.tensor([[1.0, 0.0]], device=dev)
+    F = to_device([[1.0, 1.0], [0.0, 1.0]], dev, torch.float32)
+    Hm = to_device([[1.0, 0.0]], dev, torch.float32)
     eye = torch.eye(2, device=dev)
     x = F @ state.x
     P = F @ state.P @ F.T + cfg.kf_process_noise * eye

@@ -23,6 +23,7 @@ from semantic_slam_mapping_torch.geometry import se3
 from semantic_slam_mapping_torch.geometry.camera import (Intrinsics,
                                                          project_stereo,
                                                          triangulate_stereo)
+from semantic_slam_mapping_torch.utils.timing import span
 
 
 class QuadMatches(NamedTuple):
@@ -109,19 +110,20 @@ def _gn_refine(T0: torch.Tensor, X: torch.Tensor, obs: torch.Tensor,
                           zip(*(x.chunk(groups) for x in xs))])
 
     for _ in range(iters):
-        P = se3.transform_points(T, X)                          # (B, N, 3)
-        r = obs - project_stereo(K, P)                          # (B, N, 4)
-        J = per_group(lambda p: _jacobian(p, K), P)             # (B, N, 4, 6)
-        Jw = J * w[:, :, None, None]
-        H = per_group(lambda a, b: torch.einsum("bnri,bnrj->bij", a, b),
-                      Jw, J) + damping * eye6
-        g = per_group(lambda a, b: torch.einsum("bnri,bnr->bi", a, b),
-                      Jw, r)
-        delta = -torch.linalg.solve_ex(H, g)[0]
-        ok = torch.all(torch.isfinite(delta), dim=-1) & ~done
-        T = per_group(lambda d, t: se3.exp(d) @ t,
-                      torch.where(ok[:, None], delta, 0.0), T)
-        done = done | (torch.linalg.norm(delta, dim=-1) < step_tol)
+        with span("vo/gn_step"):
+            P = se3.transform_points(T, X)                      # (B, N, 3)
+            r = obs - project_stereo(K, P)                      # (B, N, 4)
+            J = per_group(lambda p: _jacobian(p, K), P)         # (B, N, 4, 6)
+            Jw = J * w[:, :, None, None]
+            H = per_group(lambda a, b: torch.einsum("bnri,bnrj->bij", a, b),
+                          Jw, J) + damping * eye6
+            g = per_group(lambda a, b: torch.einsum("bnri,bnr->bi", a, b),
+                          Jw, r)
+            delta = -torch.linalg.solve_ex(H, g)[0]
+            ok = torch.all(torch.isfinite(delta), dim=-1) & ~done
+            T = per_group(lambda d, t: se3.exp(d) @ t,
+                          torch.where(ok[:, None], delta, 0.0), T)
+            done = done | (torch.linalg.norm(delta, dim=-1) < step_tol)
     return T.reshape(lead + (4, 4))
 
 

@@ -70,8 +70,8 @@ def disparity_to_depth(K: Intrinsics, disparity: torch.Tensor,
     intrinsics (torch would turn a Python-float numerator into a
     reciprocal times a scalar)."""
     valid = disparity > min_disparity
-    bf = torch.tensor(np.float32(K.fx) * np.float32(K.baseline),
-                      dtype=torch.float32, device=disparity.device)
+    bf = torch.full((), float(np.float32(K.fx) * np.float32(K.baseline)),
+                    dtype=torch.float32, device=disparity.device)
     depth = torch.div(bf, torch.where(valid, disparity,
                                       torch.ones_like(disparity)))
     return torch.where(valid, depth, torch.zeros_like(depth))

@@ -9,7 +9,11 @@ the caller enables ``allow_tf32``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from semantic_slam_mapping_torch.utils.device import to_device
 
 _EPS = 1e-8
 
@@ -114,14 +118,18 @@ def _left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     return _eye3_like(w) - 0.5 * W + k[..., None, None] * W2
 
 
+@functools.lru_cache(maxsize=None)
+def _bottom_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return to_device([[0.0, 0.0, 0.0, 1.0]], device, dtype)
+
+
 def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (…, 4, 4) from (…, 3, 3) rotations and (…, 3) translations."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    bottom = _bottom_row(R.dtype, R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

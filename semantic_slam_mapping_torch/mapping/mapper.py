@@ -27,6 +27,7 @@ from semantic_slam_mapping_torch.geometry.camera import Intrinsics
 from semantic_slam_mapping_torch.mapping import semantics
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops.components import connected_components
+from semantic_slam_mapping_torch.utils.device import to_device
 
 _NO_KEY = 2147483647   # sort key of a dropped pixel (int32 max)
 
@@ -101,8 +102,7 @@ def generate_point_cloud(depth: torch.Tensor, color: torch.Tensor,
 
     # back-projection with float32 intrinsics as device tensors: a Python
     # float divisor would become a reciprocal multiply on the card
-    fx, fy, cx, cy = torch.tensor([K.fx, K.fy, K.cx, K.cy],
-                                  dtype=torch.float32, device=dev)
+    fx, fy, cx, cy = to_device([K.fx, K.fy, K.cx, K.cy], dev, torch.float32)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
     x = (u - cx) * depth / fx

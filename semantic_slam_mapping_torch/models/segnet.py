@@ -42,6 +42,7 @@ from torch import nn
 from semantic_slam_mapping_torch.config import SegNetConfig
 from semantic_slam_mapping_torch.utils.convert import (segnet_state_from_flax,
                                                         segnet_state_to_flax)
+from semantic_slam_mapping_torch.utils.timing import span
 
 # encoder plan: (convs per block, channels), VGG16
 _BLOCKS: Sequence[Tuple[int, int]] = (
@@ -328,9 +329,13 @@ def make_train_step(model: SegNet, optimizer: torch.optim.Optimizer,
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, images, labels, class_weights=class_weights)
-        loss.backward()
-        optimizer.step()
+        with span("segnet/forward"):
+            loss = loss_fn(model, images, labels,
+                           class_weights=class_weights)
+        with span("segnet/backward"):
+            loss.backward()
+        with span("segnet/optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -340,7 +345,10 @@ def make_train_step(model: SegNet, optimizer: torch.optim.Optimizer,
 def infer(model: SegNet, images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) -> (B, H, W) int64 argmax labels (ties to the first
     class, as ``jnp.argmax``)."""
-    return torch.argmax(model(images), dim=-1)
+    with span("segnet/infer"):
+        with span("segnet/forward"):
+            logits = model(images)
+        return torch.argmax(logits, dim=-1)
 
 
 def miou(pred: torch.Tensor, gt: torch.Tensor, num_classes: int,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from semantic_slam_mapping_torch.utils.timing import span
+
 
 def _segmented_scan_min(v: torch.Tensor, start: torch.Tensor,
                         dim: int) -> torch.Tensor:
@@ -61,12 +63,13 @@ def connected_components(valid: torch.Tensor, same, sweeps: int = 16,
 
     lbl = idx
     for _ in range(sweeps):
-        lbl = _segmented_run_min(lbl, ~lf_ok, ~rt_ok, dim=-1)
-        lbl = _segmented_run_min(lbl, ~up_ok, ~dn_ok, dim=-2)
-        # pointer jumps within each frame: a label is a flat index of its
-        # own frame
-        flat = lbl.reshape(-1, H * W)
-        for _ in range(jumps):
-            flat = torch.gather(flat, 1, flat)
-        lbl = flat.reshape(valid.shape)
+        with span("cc/sweep"):
+            lbl = _segmented_run_min(lbl, ~lf_ok, ~rt_ok, dim=-1)
+            lbl = _segmented_run_min(lbl, ~up_ok, ~dn_ok, dim=-2)
+            # pointer jumps within each frame: a label is a flat index of
+            # its own frame
+            flat = lbl.reshape(-1, H * W)
+            for _ in range(jumps):
+                flat = torch.gather(flat, 1, flat)
+            lbl = flat.reshape(valid.shape)
     return lbl

@@ -8,12 +8,15 @@ float32 accumulation, so a float32 image filters to the same rounding.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from semantic_slam_mapping_torch.utils.device import to_device
 
 
 def gaussian_kernel_1d(sigma: float, radius: int) -> np.ndarray:
@@ -91,6 +94,12 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int,
+                   device: torch.device) -> torch.Tensor:
+    return to_device(_resize_weights(n_in, n_out), device)
+
+
 def resize_bilinear(img: torch.Tensor,
                     out_hw: Tuple[int, int]) -> torch.Tensor:
     """Linear resize of (..., H, W) to (..., H', W'), antialiased when it
@@ -101,10 +110,10 @@ def resize_bilinear(img: torch.Tensor,
     h, w = out_hw
     x = img.float()
     if h != H:
-        wy = torch.from_numpy(_resize_weights(H, h)).to(img.device)
+        wy = _resize_matrix(H, h, img.device)
         x = torch.einsum("...yx,yo->...ox", x, wy)
     if w != W:
-        wx = torch.from_numpy(_resize_weights(W, w)).to(img.device)
+        wx = _resize_matrix(W, w, img.device)
         x = torch.einsum("...yx,xo->...yo", x, wx)
     return x
 
@@ -119,8 +128,8 @@ def resize_nearest(img: torch.Tensor,
             continue
         offs = np.floor(((np.arange(n_out, dtype=np.float32) + 0.5)
                          * np.float32(n_in / n_out)).astype(np.float32))
-        img = torch.index_select(img, axis, torch.from_numpy(
-            offs.astype(np.int64)).to(img.device))
+        img = torch.index_select(img, axis, to_device(
+            offs.astype(np.int64), img.device))
     return img
 
 
@@ -224,8 +233,9 @@ def otsu_threshold(img: torch.Tensor, n_bins: int = 256,
     plateau of maxima yields its midpoint. The range's ends may be tensors
     of the batch shape."""
     lo, hi = value_range
-    lo = torch.as_tensor(lo, dtype=torch.float32, device=img.device)
-    hi = torch.as_tensor(hi, dtype=torch.float32, device=img.device)
+    lo, hi = (v.to(img.device, torch.float32) if isinstance(v, torch.Tensor)
+              else torch.full((), v, dtype=torch.float32, device=img.device)
+              for v in (lo, hi))
     hist = _histogram(img, n_bins, lo, hi)
     centers = lo[..., None] + (torch.arange(
         n_bins, dtype=torch.float32, device=hist.device) + 0.5) * (

@@ -16,6 +16,7 @@ import torch
 
 from semantic_slam_mapping_torch.config import KltConfig
 from semantic_slam_mapping_torch.ops import image as im
+from semantic_slam_mapping_torch.utils.timing import span
 
 
 class TrackResult(NamedTuple):
@@ -94,20 +95,22 @@ def _track_level(template: torch.Tensor, target: torch.Tensor,
     g = guess
     converged = torch.zeros_like(ok_g)
     for _ in range(cfg.max_iterations):
-        o = pt0 + g - tgt_corner_f - r
-        rr = _sample_patch(target, tgt_corner, o, win) - t_patch
-        bx = torch.sum(rr * gx, dim=(-2, -1))
-        by = torch.sum(rr * gy, dim=(-2, -1))
-        step = torch.stack([-(gyy * bx - gxy * by) * inv_det,
-                            -(-gxy * bx + gxx * by) * inv_det], dim=-1)
-        new_g = torch.minimum(torch.maximum(g + step, lo), hi)
-        g = torch.where(converged[..., None] | frozen, g, new_g)
-        converged = converged | (torch.sum(step * step, dim=-1)
-                                 < cfg.epsilon ** 2)
+        with span("klt/step"):
+            o = pt0 + g - tgt_corner_f - r
+            rr = _sample_patch(target, tgt_corner, o, win) - t_patch
+            bx = torch.sum(rr * gx, dim=(-2, -1))
+            by = torch.sum(rr * gy, dim=(-2, -1))
+            step = torch.stack([-(gyy * bx - gxy * by) * inv_det,
+                                -(-gxy * bx + gxx * by) * inv_det], dim=-1)
+            new_g = torch.minimum(torch.maximum(g + step, lo), hi)
+            g = torch.where(converged[..., None] | frozen, g, new_g)
+            converged = converged | (torch.sum(step * step, dim=-1)
+                                     < cfg.epsilon ** 2)
 
-    o = pt0 + g - tgt_corner_f - r
-    final = _sample_patch(target, tgt_corner, o, win)
-    err = torch.mean(torch.abs(final - t_patch), dim=(-2, -1))
+    with span("klt/residual"):
+        o = pt0 + g - tgt_corner_f - r
+        final = _sample_patch(target, tgt_corner, o, win)
+        err = torch.mean(torch.abs(final - t_patch), dim=(-2, -1))
     return g, ok_g, err
 
 
@@ -125,8 +128,9 @@ def track_pyramid(template_pyr: Sequence[torch.Tensor],
     ok = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
     err = torch.zeros(pts.shape[:-1], device=pts.device)
     for lvl in range(n_levels - 1, -1, -1):
-        f, ok_l, err = _track_level(template_pyr[lvl], target_pyr[lvl],
-                                    pts / (2.0 ** lvl), flow, cfg)
+        with span("klt/level"):
+            f, ok_l, err = _track_level(template_pyr[lvl], target_pyr[lvl],
+                                        pts / (2.0 ** lvl), flow, cfg)
         ok = ok & ok_l
         flow = f * 2.0 if lvl > 0 else f
     out = pts + flow

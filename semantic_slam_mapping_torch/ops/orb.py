@@ -12,6 +12,7 @@ unpacked, (N, 256) uint8 in {0, 1}, so Hamming distances are a matmul
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -20,6 +21,8 @@ import torch
 from semantic_slam_mapping_torch.config import OrbConfig
 from semantic_slam_mapping_torch.ops import corners
 from semantic_slam_mapping_torch.ops import image as im
+from semantic_slam_mapping_torch.utils.device import to_device
+from semantic_slam_mapping_torch.utils.timing import span
 
 DESC_BITS = 256
 
@@ -57,11 +60,18 @@ def _disc_offsets(radius: int) -> np.ndarray:
     return np.stack([xs[inside], ys[inside]], axis=-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(table: str, radius: int, device: torch.device) -> torch.Tensor:
+    """The disc offsets of ``radius`` or the pair table, on ``device``."""
+    return to_device(_disc_offsets(radius) if table == "disc" else _PATTERN,
+                     device)
+
+
 def orientation(img: torch.Tensor, xy: torch.Tensor,
                 radius: int = 15) -> torch.Tensor:
     """Intensity-centroid orientation (rad) of keypoints xy (N, 2):
     atan2(m01, m10) over a disc patch."""
-    offs = torch.from_numpy(_disc_offsets(radius)).to(img.device)  # (P, 2)
+    offs = _on_device("disc", radius, img.device)                  # (P, 2)
     patch = im.bilinear_sample(img, xy[:, None, :] + offs)         # (N, P)
     m10 = torch.sum(offs[:, 0] * patch, dim=-1)
     m01 = torch.sum(offs[:, 1] * patch, dim=-1)
@@ -73,7 +83,7 @@ def descriptors(img: torch.Tensor, xy: torch.Tensor,
     """Steered BRIEF: the pair pattern rotated by each keypoint's angle,
     both points bilinear-sampled, bit = I(a) < I(b). (N, 256) uint8. The
     image should be pre-smoothed (sigma 2)."""
-    pat = torch.from_numpy(_PATTERN).to(img.device)                # (B, 2, 2)
+    pat = _on_device("pattern", 0, img.device)                     # (B, 2, 2)
     c = torch.cos(angle)[:, None, None]
     s = torch.sin(angle)[:, None, None]
     px, py = pat[None, :, :, 0], pat[None, :, :, 1]
@@ -95,38 +105,48 @@ def _level_budgets(n_features: int, n_levels: int,
     return out.tolist()
 
 
+def _level_features(img_l: torch.Tensor, lvl: int, budget: int,
+                    cfg: OrbConfig) -> OrbFeatures:
+    """The ORB features of one pyramid level, in level-0 pixels."""
+    scale = cfg.scale_factor ** lvl
+    resp = corners.fast_response(img_l, cfg.ini_th_fast / 255.0)
+    # the low threshold where the high one finds nothing
+    resp_lo = corners.fast_response(img_l, cfg.min_th_fast / 255.0)
+    resp = torch.where(torch.max(resp) > 0, resp, resp_lo)
+    kp = corners.select_keypoints(
+        resp, budget, quality_level=0.0, cell_size=16,
+        border=min(cfg.edge_threshold, min(img_l.shape) // 4))
+    blurred = im.gaussian_blur(img_l, 2.0)
+    ang = orientation(img_l, kp.xy, cfg.half_patch_size)
+    desc = descriptors(blurred, kp.xy, ang)
+    return OrbFeatures(
+        xy=kp.xy * scale, response=kp.score, angle=ang,
+        level=torch.full(kp.xy.shape[:1], lvl, dtype=torch.int32,
+                         device=img_l.device),
+        desc=torch.where(kp.valid[:, None], desc, 0).to(torch.uint8),
+        valid=kp.valid)
+
+
 def extract(img: torch.Tensor, cfg: OrbConfig = OrbConfig()) -> OrbFeatures:
     """ORB extraction on one (H, W) image -> fixed N-slot feature set."""
-    pyr = im.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-    budgets = _level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    with span("orb/extract"):
+        pyr = im.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+        budgets = _level_budgets(cfg.n_features, cfg.n_levels,
+                                 cfg.scale_factor)
 
-    parts = []
-    for lvl, (img_l, budget) in enumerate(zip(pyr, budgets)):
-        if budget == 0:
-            continue
-        scale = cfg.scale_factor ** lvl
-        resp = corners.fast_response(img_l, cfg.ini_th_fast / 255.0)
-        # the low threshold where the high one finds nothing
-        resp_lo = corners.fast_response(img_l, cfg.min_th_fast / 255.0)
-        resp = torch.where(torch.max(resp) > 0, resp, resp_lo)
-        kp = corners.select_keypoints(
-            resp, budget, quality_level=0.0, cell_size=16,
-            border=min(cfg.edge_threshold, min(img_l.shape) // 4))
-        blurred = im.gaussian_blur(img_l, 2.0)
-        ang = orientation(img_l, kp.xy, cfg.half_patch_size)
-        desc = descriptors(blurred, kp.xy, ang)
-        parts.append(OrbFeatures(
-            xy=kp.xy * scale, response=kp.score, angle=ang,
-            level=torch.full(kp.xy.shape[:1], lvl, dtype=torch.int32,
-                             device=img.device),
-            desc=torch.where(kp.valid[:, None], desc, 0).to(torch.uint8),
-            valid=kp.valid))
+        parts = []
+        for lvl, (img_l, budget) in enumerate(zip(pyr, budgets)):
+            if budget == 0:
+                continue
+            with span("orb/level"):
+                parts.append(_level_features(img_l, lvl, budget, cfg))
 
-    merged = OrbFeatures(*[torch.cat([p[i] for p in parts])
-                           for i in range(6)])
-    pad = cfg.n_features - merged.xy.shape[0]
-    if pad > 0:
-        merged = OrbFeatures(*[
-            torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype,
-                                      device=x.device)]) for x in merged])
-    return merged
+        merged = OrbFeatures(*[torch.cat([p[i] for p in parts])
+                               for i in range(6)])
+        pad = cfg.n_features - merged.xy.shape[0]
+        if pad > 0:
+            merged = OrbFeatures(*[
+                torch.cat([x, torch.zeros((pad,) + x.shape[1:],
+                                          dtype=x.dtype, device=x.device)])
+                for x in merged])
+        return merged

@@ -31,6 +31,7 @@ from semantic_slam_mapping_torch.config import SgbmConfig
 from semantic_slam_mapping_torch.ops import image as im
 from semantic_slam_mapping_torch.ops.components import connected_components
 from semantic_slam_mapping_torch.ops.cuda.sgm_cuda import sgm_aggregate4
+from semantic_slam_mapping_torch.utils.timing import span
 
 INVALID = -1.0
 
@@ -92,7 +93,7 @@ def _sgm_step(carry: torch.Tensor, c: torch.Tensor, p1: float, p2: float,
         z = torch.zeros_like(carry[..., :1, :])
         carry = (torch.cat([z, carry[..., :-1, :]], dim=-2) if shift > 0
                  else torch.cat([carry[..., 1:, :], z], dim=-2))
-    big = torch.tensor(1e9, dtype=carry.dtype, device=carry.device)
+    big = torch.full((), 1e9, dtype=carry.dtype, device=carry.device)
     prev_min = carry.amin(dim=-1, keepdim=True)
     up = torch.cat([carry[..., :1] + big, carry[..., :-1]], dim=-1)
     dn = torch.cat([carry[..., 1:], carry[..., -1:] + big], dim=-1)
@@ -210,11 +211,14 @@ def compute(left: torch.Tensor, right: torch.Tensor,
             cfg: SgbmConfig = SgbmConfig()) -> SgbmResult:
     """Full SGBM disparity for a rectified pair of (H, W) images in [0, 1],
     or for a batch (B, H, W) of pairs."""
-    vol = _cost_volume(left, right, cfg)
-    agg = _aggregate(vol, cfg)
-    disp, unique_ok = _wta_subpixel(agg, cfg)
-    lr_ok = _lr_check(agg, disp, cfg)
-    valid = unique_ok & lr_ok & (disp > cfg.min_disparity)
-    valid = _speckle_filter(disp, valid, cfg)
-    return SgbmResult(disparity=torch.where(valid, disp, INVALID),
-                      valid=valid)
+    with span("sgbm/cost_volume"):
+        vol = _cost_volume(left, right, cfg)
+    with span("sgbm/aggregate"):
+        agg = _aggregate(vol, cfg)
+    with span("sgbm/select"):
+        disp, unique_ok = _wta_subpixel(agg, cfg)
+        lr_ok = _lr_check(agg, disp, cfg)
+        valid = unique_ok & lr_ok & (disp > cfg.min_disparity)
+        valid = _speckle_filter(disp, valid, cfg)
+        return SgbmResult(disparity=torch.where(valid, disp, INVALID),
+                          valid=valid)

@@ -94,7 +94,8 @@ from semantic_slam_mapping_torch.parallel.sharded_frontend import (
     gather_result, track_frames_sharded)
 from semantic_slam_mapping_torch.parallel.sharded_map import ShardedGlobalMap
 from semantic_slam_mapping_torch.utils.logging import get_logger
-from semantic_slam_mapping_torch.utils.timing import StageTimer
+from semantic_slam_mapping_torch.utils.device import to_device
+from semantic_slam_mapping_torch.utils.timing import StageTimer, span
 
 log = get_logger("pipeline")
 
@@ -161,22 +162,16 @@ def _kf_cloud(disp_f16: torch.Tensor, left_f16: torch.Tensor,
         labels = torch.ones(disp.shape, dtype=torch.int64, device=dev)
     mov = (moving_mask if moving_mask is not None
            else torch.zeros(disp.shape, dtype=torch.bool, device=dev))
-    cloud = mp.generate_point_cloud(depth, color, labels, mov,
-                                    torch.eye(4, device=dev), K, mcfg,
-                                    budget=mcfg.max_points_per_frame)
+    with span("map/points"):
+        cloud = mp.generate_point_cloud(depth, color, labels, mov,
+                                        torch.eye(4, device=dev), K, mcfg,
+                                        budget=mcfg.max_points_per_frame)
     xyz_q = torch.clamp(torch.round(cloud.xyz * 64.0),
                         -32767, 32767).to(torch.int16)
     rgb_q = torch.clamp(torch.round(cloud.rgb * 255.0), 0, 255).to(
         torch.uint8)
     return (xyz_q, rgb_q, cloud.label.to(torch.int8),
             cloud.valid.sum().to(torch.int32))
-
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor without waiting for the device queue
-    (CUDA stages a pageable source before the call returns)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
-                                                        non_blocking=True)
 
 
 def _stage_to_host(tensors: Sequence[torch.Tensor]
@@ -204,7 +199,7 @@ def _dev_img(kf: "Keyframe", attr: str, device: torch.device):
     an eviction."""
     dev = getattr(kf, attr + "_dev", None)
     if dev is None:
-        dev = _upload(getattr(kf, attr + "_host"), device).half()
+        dev = to_device(getattr(kf, attr + "_host"), device).half()
         setattr(kf, attr + "_dev", dev)
     return dev
 
@@ -310,7 +305,7 @@ class Keyframe:
         """(xy, desc, xyz, valid) on the device (uploaded if evicted)."""
         if self.feats_dev is not None:
             return self.feats_dev
-        return tuple(_upload(a, device) for a in (
+        return tuple(to_device(a, device) for a in (
             self.feat_xy, self.feat_desc, self.feat_xyz, self.feat_valid))
 
 
@@ -450,7 +445,7 @@ class SlamSystem:
                 q = q.pin_memory()
             q = q.to(self.device, non_blocking=True)
             return q.float() * (1.0 / 255.0)
-        return torch.as_tensor(img).to(self.device, torch.float32)
+        return to_device(img, self.device).float()
 
     def _dispatch_frame(self, left, right) -> Optional[tracker.FrameResult]:
         """Queue one frontend step on the device; reads nothing back. The
@@ -478,13 +473,15 @@ class SlamSystem:
         read back, pending corrections applied, a LOST tracker recovered,
         and the keyframe gate checked."""
         with self.timer.stage("frontend"):
-            pose = out.pose.detach().to("cpu", torch.float64).numpy()
             n_moving = (out.moving_mask.sum() if out.moving_mask is not None
                         else torch.zeros_like(out.n_inliers))
-            status, success, n_matches, n_inliers, n_moving = torch.stack([
+            stats = torch.stack([
                 out.status.long(), out.vo_success.long(),
-                out.n_matches.long(), out.n_inliers.long(),
-                n_moving.long()]).tolist()
+                out.n_matches.long(), out.n_inliers.long(), n_moving.long()])
+            with self.timer.stage("sync/poses"):
+                pose = out.pose.detach().to("cpu", torch.float64).numpy()
+                status, success, n_matches, n_inliers, n_moving = \
+                    stats.tolist()
         self._processed += 1
         if self._corrections:
             for until, C, exact in self._corrections:
@@ -550,9 +547,9 @@ class SlamSystem:
         comes as a FrameResult whose disparity is the depth image and
         which has no moving mask and no quad matches."""
         gray = self._upload_gray(gray)
-        depth = (_upload(np.asarray(depth, np.float32), self.device)
+        depth = (to_device(np.asarray(depth, np.float32), self.device)
                  if isinstance(depth, np.ndarray)
-                 else torch.as_tensor(depth).to(self.device, torch.float32))
+                 else to_device(depth, self.device).float())
         self.state, out = rt.track_frame_rgbd(self.state, gray, depth,
                                               self.K, self.cfg)
         self._prev = (gray, depth)
@@ -628,54 +625,58 @@ class SlamSystem:
         self._dispatched += B
         self._processed += B
         with self.timer.stage("frontend"):
-            poses = out.pose.detach().to("cpu", torch.float64).numpy()
-            statuses, success, n_matches, n_inliers, n_moving = torch.stack([
+            stats = torch.stack([
                 out.status.long(), out.vo_success.long(),
                 out.n_matches.long(), out.n_inliers.long(),
-                out.moving_mask.sum(dim=(-2, -1)).long()]).tolist()
+                out.moving_mask.sum(dim=(-2, -1)).long()])
+            with self.timer.stage("sync/poses"):
+                poses = out.pose.detach().to("cpu", torch.float64).numpy()
+                statuses, success, n_matches, n_inliers, n_moving = \
+                    stats.tolist()
         # a frame relocalised inside the window corrects the later ones,
         # which were integrated from its lost pose
         C = np.eye(4)
         corrected = False
         for i in range(B):
-            pose_i = (C @ poses[i]) if corrected else poses[i]
-            self.trajectory.append(pose_i)
-            self._append_anchor(pose_i)
-            self.frame_log.append(FrameLog(statuses[i], bool(success[i]),
-                                           n_matches[i], n_inliers[i],
-                                           n_moving[i]))
-            self.frame_count += 1
-            if statuses[i] == tracker.LOST and self.ref_frames:
-                rec = self._relocalize(lefts[i + 1], out.disparity[i],
-                                       pose_i)
-                if rec is None:
-                    ref = self.ref_frames[-1]
-                    new_pose = ref.pose.astype(np.float64)
-                    log.info("lost: re-seeded at keyframe %d pose",
-                             ref.kf_id)
-                else:
-                    new_pose, ref = rec
-                    log.info("relocalized against keyframe %d", ref.kf_id)
-                self.n_recoveries += 1
-                self._rewrite_last(new_pose, anchor_kf=ref)
-                self.ref_frames.clear()
-                self.ref_frames.append(ref)
-                C = new_pose @ np.linalg.inv(poses[i])
-                corrected = True
-                pose_i = new_pose
-            single = tracker.FrameResult(
-                pose=_upload(pose_i.astype(np.float32), self.device),
-                T_delta=out.T_delta[i], status=out.status[i],
-                n_matches=out.n_matches[i], n_inliers=out.n_inliers[i],
-                moving_mask=out.moving_mask[i], disparity=out.disparity[i],
-                matches=vo.QuadMatches(*(x[i] for x in out.matches)),
-                vo_success=out.vo_success[i], pitch=out.pitch[i])
-            self.last_result = single
-            if self._keyframe_due(pose_i):
-                self._insert_keyframe(
-                    single, pose_i, lefts[i + 1], rights[i + 1],
-                    colors[i + 1] if colors is not None else None,
-                    semantics[i + 1] if semantics is not None else None)
+            with span("frame/host"):
+                pose_i = (C @ poses[i]) if corrected else poses[i]
+                self.trajectory.append(pose_i)
+                self._append_anchor(pose_i)
+                self.frame_log.append(FrameLog(statuses[i], bool(success[i]),
+                                               n_matches[i], n_inliers[i],
+                                               n_moving[i]))
+                self.frame_count += 1
+                if statuses[i] == tracker.LOST and self.ref_frames:
+                    rec = self._relocalize(lefts[i + 1], out.disparity[i],
+                                           pose_i)
+                    if rec is None:
+                        ref = self.ref_frames[-1]
+                        new_pose = ref.pose.astype(np.float64)
+                        log.info("lost: re-seeded at keyframe %d pose",
+                                 ref.kf_id)
+                    else:
+                        new_pose, ref = rec
+                        log.info("relocalized against keyframe %d", ref.kf_id)
+                    self.n_recoveries += 1
+                    self._rewrite_last(new_pose, anchor_kf=ref)
+                    self.ref_frames.clear()
+                    self.ref_frames.append(ref)
+                    C = new_pose @ np.linalg.inv(poses[i])
+                    corrected = True
+                    pose_i = new_pose
+                single = tracker.FrameResult(
+                    pose=to_device(pose_i.astype(np.float32), self.device),
+                    T_delta=out.T_delta[i], status=out.status[i],
+                    n_matches=out.n_matches[i], n_inliers=out.n_inliers[i],
+                    moving_mask=out.moving_mask[i], disparity=out.disparity[i],
+                    matches=vo.QuadMatches(*(x[i] for x in out.matches)),
+                    vo_success=out.vo_success[i], pitch=out.pitch[i])
+                self.last_result = single
+                if self._keyframe_due(pose_i):
+                    self._insert_keyframe(
+                        single, pose_i, lefts[i + 1], rights[i + 1],
+                        colors[i + 1] if colors is not None else None,
+                        semantics[i + 1] if semantics is not None else None)
         if corrected:
             # the live tracker state moves by the window's correction
             self._adjust_state(C @ self._state_pose())
@@ -686,11 +687,12 @@ class SlamSystem:
         """Rewrite the tracker's pose (status OK, lost count 0); the RGB-D
         tracker also moves its world-frame reference points."""
         adjust = rt.adjust if self.rgbd else tracker.adjust
-        self.state = adjust(self.state, _upload(
+        self.state = adjust(self.state, to_device(
             np.asarray(new_pose, np.float32), self.device))
 
     def _state_pose(self) -> np.ndarray:
-        return self.state.pose.detach().to("cpu", torch.float64).numpy()
+        with self.timer.stage("sync/state_pose"):
+            return self.state.pose.detach().to("cpu", torch.float64).numpy()
 
     def _append_anchor(self, pose: np.ndarray):
         if self.keyframes:
@@ -791,13 +793,14 @@ class SlamSystem:
         for old in stale + rebuilt:
             if old.left_dev is None and old.feats_dev is None:
                 continue
-            old._host("left"), old._host("right"), old._host("disparity")
-            old._host("semantic")
+            with self.timer.stage("sync/evict"):
+                old._host("left"), old._host("right"), old._host("disparity")
+                old._host("semantic")
+                for i, a in enumerate(("feat_xy", "feat_desc",
+                                       "feat_xyz", "feat_valid")):
+                    old._feats_host(i, a)
             old.left_dev = old.right_dev = old.disparity_dev = None
             old.semantic_dev = None
-            for i, a in enumerate(("feat_xy", "feat_desc",
-                                   "feat_xyz", "feat_valid")):
-                old._feats_host(i, a)
             old.feats_dev = None
 
     def _store_keyframe(self, out, pose, left, right, color, semantic,
@@ -915,7 +918,7 @@ class SlamSystem:
                           for r in refs]
                 right_r = [self._dev_img_tracked(r, "right").float()
                            for r in refs]
-            T_init = _upload(np.stack(
+            T_init = to_device(np.stack(
                 [np.linalg.inv(np.linalg.inv(r.pose) @ kf.pose)
                  .astype(np.float32) for r in pick]), dev)
             kf_xy, kf_desc, kf_xyz, kf_val = kf.feats_on(dev)
@@ -934,7 +937,7 @@ class SlamSystem:
                 # no stereo pair: the reverse PnP (kf's 3D against each
                 # candidate's 2D) is the only check, started from the
                 # graph's relative pose
-                T_init_rev = _upload(np.stack(
+                T_init_rev = to_device(np.stack(
                     [(np.linalg.inv(r.pose) @ kf.pose).astype(np.float32)
                      for r in pick]), dev)
                 res_rev = pnp_mod.solve_pnp_lazy(
@@ -984,7 +987,8 @@ class SlamSystem:
 
         def harvest() -> int:
             with self.timer.stage("edges/readback"):
-                vals = read()
+                with self.timer.stage("sync/edges"):
+                    vals = read()
                 ok = vals[0] & ref_valid
                 pnp_inl = vals[1]
                 T_pnp = se3_np.inverse(vals[2].astype(np.float64))
@@ -1054,8 +1058,8 @@ class SlamSystem:
         while self._db_n < len(self.keyframes):
             k = self.keyframes[self._db_n]
             bi, bw = (k.bow_dev if k.bow_dev is not None
-                      else (_upload(k.bow_idx, self.device),
-                            _upload(k.bow_w, self.device)))
+                      else (to_device(k.bow_idx, self.device),
+                            to_device(k.bow_w, self.device)))
             if self._db_idx is None:
                 cap = 64
                 self._db_idx = torch.full((cap,) + bi.shape, lp.PAD_WORD,
@@ -1087,8 +1091,8 @@ class SlamSystem:
         ids[:n] = [k.frame_index for k in self.keyframes[:n]]
         db_valid = np.arange(cap) < n
         with self.timer.stage("loops/score"):
-            ids, db_valid = (_upload(ids, self.device),
-                             _upload(db_valid, self.device))
+            ids, db_valid = (to_device(ids, self.device),
+                             to_device(db_valid, self.device))
             # under a mesh the rows split over the data axis when they
             # divide by it (the capacity is a power of two)
             if (self.mesh is not None
@@ -1106,7 +1110,8 @@ class SlamSystem:
         read = _stage_to_host([scores_dev, mask_dev])
 
         def pick_and_dispatch():
-            scores, mask = read()
+            with self.timer.stage("sync/loops"):
+                scores, mask = read()
             # the best-scoring candidates, at most the nearby budget
             idx = np.nonzero(mask)[0]
             nb = self.cfg.pose_graph.nearby_keyframes
@@ -1148,7 +1153,7 @@ class SlamSystem:
                 self.graph.edge_i[:ne], self.graph.edge_j[:ne],
                 self.graph.edge_T[:ne], self.graph.edge_info[:ne],
                 self.graph.edge_valid[:ne], self.graph.edge_is_loop[:ne])
-            g = pg.PoseGraph(*(_upload(a, self.device) for a in host))
+            g = pg.PoseGraph(*(to_device(a, self.device) for a in host))
             if self.mesh is not None:
                 # the edges split over the mesh's data axis
                 g = sharded_pcg.optimize_sharded(g, mask_of(g), self.mesh,
@@ -1158,7 +1163,8 @@ class SlamSystem:
                                              host.edge_valid, nv)
                 g = pg.optimize(g, mask_of(g), cfg, iters=iters,
                                 table=table)
-            self.graph.poses[:nv] = g.poses.cpu().numpy()
+            with self.timer.stage("sync/optimize"):
+                self.graph.poses[:nv] = g.poses.cpu().numpy()
 
         if force_global or self.loop_error > cfg.loop_accumulate_error:
             # the solve ends in a readback, so the stage is its wall time
@@ -1193,13 +1199,14 @@ class SlamSystem:
         _, r_desc, r_xyz, r_val = ref.feats_on(self.device)
         info = pnp_mod.solve_pnp_lazy(
             r_desc, r_xyz, r_val, feats.desc, feats.xy, feats.valid,
-            self.K, _upload(T_init.astype(np.float32), self.device),
+            self.K, to_device(T_init.astype(np.float32), self.device),
             self.cfg.pnp, self.cfg.orb.knn_match_ratio)
-        if not bool(info.success):
-            return None
+        with self.timer.stage("sync/pnp_ref"):
+            if not bool(info.success):
+                return None
+            T = info.T.detach().to("cpu", torch.float64).numpy()
         # info.T maps ref-camera coordinates to current-camera ones
-        return ref.pose @ np.linalg.inv(
-            info.T.detach().to("cpu", torch.float64).numpy())
+        return ref.pose @ np.linalg.inv(T)
 
     def _adjust_frontend(self, ref: Keyframe, ref_pose_pre_opt: np.ndarray):
         """Re-anchor the frontend on the optimised reference keyframe and
@@ -1280,13 +1287,13 @@ class SlamSystem:
         resize back (interpolating class ids would invent classes)."""
         dev = self.device
         if color is not None:
-            img = torch.as_tensor(np.asarray(color)).to(dev)
+            img = to_device(color, dev)
             if torch.is_floating_point(img):
                 img = img.float()
             else:
                 # a true division on every device (a Python-float divisor
                 # becomes a reciprocal multiply on the card)
-                img = img.float() / torch.tensor(255.0, device=dev)
+                img = img.float() / torch.full((), 255.0, device=dev)
         else:
             img = left.float()[..., None].expand(*left.shape, 3)
         H0, W0 = img.shape[:2]
@@ -1305,14 +1312,14 @@ class SlamSystem:
         the quantized arrays (at least 256 rows), the second reads them
         into ``_cloud_cache[kf_id]``."""
         dev = self.device
-        color = _upload(kf.color, dev) if kf.color is not None else None
+        color = to_device(kf.color, dev) if kf.color is not None else None
         # online SegNet's labels are on the device already
         sem = (kf.semantic_dev if kf.semantic_dev is not None
                else kf.semantic_host)
         labels = None
         if sem is not None:
             labels = (sem if isinstance(sem, torch.Tensor)
-                      else _upload(sem, dev)).long()
+                      else to_device(sem, dev)).long()
         xyz_q, rgb_q, lbl_q, n_dev = _kf_cloud(
             _dev_img(kf, "disparity", dev), _dev_img(kf, "left", dev),
             color, labels, moving_mask, self.K, self.cfg.mapper,
@@ -1320,13 +1327,15 @@ class SlamSystem:
         read_n = _stage_to_host([n_dev])
 
         def stage2():
-            n = int(read_n()[0])
+            with self.timer.stage("sync/map_count"):
+                n = int(read_n()[0])
             L = 1 << max(int(np.ceil(np.log2(max(n, 1)))), 8)
             L = min(L, self.cfg.mapper.max_points_per_frame)
             read = _stage_to_host([xyz_q[:L], rgb_q[:L], lbl_q[:L]])
 
             def stage3():
-                xq, rq, lq = read()
+                with self.timer.stage("sync/map"):
+                    xq, rq, lq = read()
                 self._cloud_cache[kf.kf_id] = (
                     xq[:n].astype(np.float32) / 64.0,
                     rq[:n].astype(np.float32) / 255.0,
@@ -1366,8 +1375,9 @@ class SlamSystem:
                 self._kf_cloud_camera(kf, moving_mask)
         xyz_c, rgb, lbl = self._cloud_cache[kf.kf_id]
         R, t = kf.pose[:3, :3], kf.pose[:3, 3]
-        self.map.insert(xyz_c @ R.T.astype(np.float32) +
-                        t.astype(np.float32), rgb, lbl)
+        with span("map/insert"):
+            self.map.insert(xyz_c @ R.T.astype(np.float32) +
+                            t.astype(np.float32), rgb, lbl)
 
     def _update_map(self, kf: Keyframe):
         """The map's update policy: every ``full_rebuild_every``-th update a
