@@ -9,10 +9,10 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
 
 1. ``device``: the card's name, count, and name and power limit from
    nvidia-smi. Fails when there is no CUDA device.
-2. ``build``: compiles the kernel source of the port's main path with
-   nvcc for sm_90a into build/torch_kernels/ (``-Xptxas -v`` prints its
+2. ``build``: compiles the kernel sources of the port's main path with
+   nvcc for sm_90a into build/torch_kernels/ (``-Xptxas -v`` prints their
    registers and spills), and the C++ voxel map with g++.
-3. ``kernels``: holds each kernel against its plain PyTorch version on the
+3. ``kernels``: holds the SGM kernel against its plain PyTorch version on the
    card, exactly (tolerance 0) and in the volume's dtype, in float32 and
    bfloat16, at the command line's KITTI shape (376, 1241, 80), at an odd
    height (375, 1241, 80), at the synthetic phases' (376, 1248, 80), and
@@ -24,7 +24,14 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    after 3 warm-ups; the 75 MB volume exceeds the 50 MB L2, so it runs
    cold), prints each launch's plan (blocks, blocks an SM holds, ring
    stages) at B = 1 and B = 8, and times the launches of variants built
-   with one part switched off, to show what bounds it.
+   with one part switched off, to show what bounds it. Then the KLT
+   kernel (``klt``): the quad match's 4 legs at the street window's shape
+   (32 pairs at 376x1241, 512 GFTT features a frame, SGBM's stereo init)
+   through the kernel and through its plain version on the card, each leg
+   from the same points (positions within 1e-3 px where both track, status
+   on 99.5% of the features), 4 launches a quad match; then the kernel's
+   device time over the 4 legs (the profiler's), the wrapper's and the
+   plain version's (CUDA events), and the bound.
 4. ``cli``: the user's workflow through the command line, as subprocesses
    on the card that run ``semantic_slam_mapping_torch.cli`` as
    ``__main__`` (what ``python -m`` does) after zeroing the kernel counts,
@@ -99,8 +106,9 @@ Phases, each printing one flushed JSON line with the seconds elapsed:
    one frame, through ``SlamSystem(cfg, enable_mapping=True,
    device="cuda").process_window`` with the default configuration.
    Counts zeroed just before and read just after: the SGM kernel must run
-   exactly twice a window. Every pair must have a VO success, the ATE RMSE
-   must be under 0.3 m, every aggregate must be a (8, 376, 1241, 80)
+   exactly twice a window and the KLT kernel 4 times. Every pair must have
+   a VO success, the ATE RMSE must be under 0.3 m, every aggregate must be
+   a (8, 376, 1241, 80)
    bfloat16 batch, the results and the keyframes' images and labels must
    be on the card, and the map must have voxels. The first 17 of the
    frames then go through ``process_stream``; both frames/s and both ATEs
@@ -234,8 +242,9 @@ from semantic_slam_mapping_torch.io.gt_pose import (read_kitti_poses,
 from semantic_slam_mapping_torch.io.kitti import KittiReader
 from semantic_slam_mapping_torch.mapping import mapper, native, semantics
 from semantic_slam_mapping_torch.models import segnet as segnet_mod
-from semantic_slam_mapping_torch.ops import matching, orb, sgbm
-from semantic_slam_mapping_torch.ops.cuda import sgm_cuda
+from semantic_slam_mapping_torch.ops import corners, klt, matching, orb, sgbm
+from semantic_slam_mapping_torch.ops import image as im
+from semantic_slam_mapping_torch.ops.cuda import nvcc, sgm_cuda
 from semantic_slam_mapping_torch.parallel import mesh as pmesh
 from semantic_slam_mapping_torch.parallel import (sharded_bow,
                                                   sharded_frontend,
@@ -304,6 +313,15 @@ SGM_VARIANTS = {
     "no_redux": ("__uint_as_float(__reduce_min_sync(kFull, lm))",
                  "__uint_as_float(lm)"),
 }
+# the KLT kernel's check and times: the street window's 32 pairs, 512
+# features a frame, the quad match's 4 legs; float32 operations a window
+# pixel a level (template and gradient taps and sums, 20 iterations of a
+# tap, a residual and two products, the final residual), and the patches a
+# feature reads a level (template, two gradients and the target, 12x12
+# float32 each)
+KLT_B, KLT_N = 32, 512
+KLT_OPS_PER_PIXEL_LEVEL = 33 + 20 * 14 + 12
+KLT_BYTES_PER_FEATURE_LEVEL = 4 * 12 * 12 * 4
 # the small checks: ragged lines, a single row, a pixel stride the wrapper
 # pads, the widest D
 SGM_SMALL = ((37, 24, 16), (24, 37, 16), (1, 7, 13), (33, 20, 13),
@@ -380,11 +398,12 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t = time.time()
-    lib = sgm_cuda.build(verbose=True)
+    libs = [sgm_cuda.build(verbose=True), nvcc.build(klt.SOURCE, verbose=True)]
     nvcc_s = time.time() - t
     t = time.time()
     voxel_lib = native.build()
-    emit("build", seconds=round(nvcc_s, 2), libraries=[lib.name],
+    emit("build", seconds=round(nvcc_s, 2),
+         libraries=[lib.name for lib in libs],
          voxel_map_seconds=round(time.time() - t, 2),
          voxel_map_library=voxel_lib.name)
 
@@ -419,11 +438,11 @@ def sgm_variant_ms(vol: torch.Tensor, p1: float, p2: float) -> dict:
         src = sgm_cuda.SOURCE.read_text()
         if old not in src:
             raise AssertionError(f"variant {name}: no {old!r} in the source")
-        build = sgm_cuda.BUILD_DIR / "variants"
+        build = nvcc.BUILD_DIR / "variants"
         build.mkdir(parents=True, exist_ok=True)
         (build / f"{name}.cu").write_text(src.replace(old, new))
         lib = build / f"lib{name}.so"
-        subprocess.run([sgm_cuda._nvcc(), *sgm_cuda.NVCC_FLAGS, "-o",
+        subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o",
                         str(lib), str(build / f"{name}.cu")], check=True,
                        timeout=120)
         fn = ctypes.CDLL(str(lib)).sgm_aggregate_pass
@@ -550,6 +569,113 @@ def phase_kernels() -> dict:
              library_ms=None)
     emit("kernels", kernel="sgm_aggregate4", shape=kitti["shape"],
          variants_ms=variants)
+    return row
+
+
+def klt_window(device: str = "cuda") -> dict:
+    """The quad match's inputs at the street window's size: KLT_B pairs of
+    the window phase's street at 376x1241, their pyramids, KLT_N GFTT
+    features a frame, their stereo (SGBM) init and the first window's
+    flow prior (zero: no motion yet)."""
+    cfg = SlamConfig()
+    lefts, rights, _, _ = render_street(cfg, KLT_B + 1, H, W_KITTI, device)
+    img = {k: torch.from_numpy(v).to(device).float() for k, v in (
+        ("lc", lefts[1:]), ("rc", rights[1:]), ("lp", lefts[:-1]),
+        ("rp", rights[:-1]))}
+    sg = sgbm.compute(img["lc"], img["rc"], cfg.sgbm)
+    lc = corners.gftt(img["lc"], max_corners=KLT_N).xy
+    d0 = im.bilinear_sample(torch.where(sg.valid, sg.disparity, 0.0),
+                            lc).clamp(min=0.0)
+    return dict(pyr={k: im.build_pyramid(v, cfg.klt.pyramid_levels, 2.0)
+                     for k, v in img.items()}, lc=lc,
+                stereo=torch.stack([-d0, torch.zeros_like(d0)], -1),
+                flow=torch.zeros_like(lc), cfg=cfg.klt)
+
+
+def klt_legs(w: dict, track) -> list:
+    """The quad match's 4 legs (lc -> rc -> rp -> lp and lc -> lp) with
+    ``track`` (the kernel's wrapper or the plain version)."""
+    p, cfg = w["pyr"], w["cfg"]
+    rc = track(p["lc"], p["rc"], w["lc"], cfg, w["stereo"])
+    rp = track(p["rc"], p["rp"], rc.xy, cfg, w["flow"])
+    lp = track(p["rp"], p["lp"], rp.xy, cfg)
+    return [rc, rp, lp, track(p["lc"], p["lp"], w["lc"], cfg, w["flow"])]
+
+
+def klt_kernel_ms(w: dict, reps: int = 10) -> float:
+    """Device milliseconds of the 4 legs' kernel launches alone (the
+    profiler's time of ``klt_track_kernel``, over ``reps`` quad matches);
+    the wrapper's time adds the gradient images it computes in PyTorch."""
+    klt_legs(w, klt.track_pyramid)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            klt_legs(w, klt.track_pyramid)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or getattr(
+        e, "cuda_time_total", 0) for e in prof.key_averages()
+        if "klt_track_kernel" in e.key)
+    if not us:
+        raise AssertionError("the profiler saw no klt_track_kernel time")
+    return us / reps / 1e3
+
+
+def phase_klt() -> dict:
+    """The KLT kernel against its plain version on the card at the
+    window's shape (each leg from the same points and inits: positions
+    within 1e-3 px where both track, status on 99.5% of the features, the
+    tolerances of tests/test_torch_klt_cuda.py), then both timed over the 4
+    legs, beside the bound."""
+    w = klt_window()
+    p, cfg = w["pyr"], w["cfg"]
+    before = klt.track_pyramid.launches
+    kern = klt_legs(w, klt.track_pyramid)
+    launches = klt.track_pyramid.launches - before
+    # each leg of the plain version from the kernel's points, so that a
+    # leg's comparison starts from the same inputs
+    srcs = [("lc", "rc", w["lc"], w["stereo"]),
+            ("rc", "rp", kern[0].xy, w["flow"]),
+            ("rp", "lp", kern[1].xy, None), ("lc", "lp", w["lc"], w["flow"])]
+    legs = []
+    for (a, b, pts, init), k in zip(srcs, kern):
+        ref = klt.track_pyramid_plain(p[a], p[b], pts, cfg, init)
+        torch.cuda.synchronize()
+        both = k.status & ref.status
+        leg = dict(leg=f"{a}->{b}",
+                   status_agree=float((k.status == ref.status).float().mean()),
+                   tracked=float(ref.status.float().mean()),
+                   max_xy_err_px=float((k.xy - ref.xy).abs()[both].max()),
+                   max_residual_err=float(
+                       (k.error - ref.error).abs()[both].max()))
+        legs.append(leg)
+        emit("kernels", kernel="klt_track", check="window", **leg,
+             shape=[KLT_B, KLT_N], xy_tolerance=1e-3, status_floor=0.995)
+        if leg["status_agree"] < 0.995 or leg["max_xy_err_px"] > 1e-3:
+            raise AssertionError(f"klt_track disagrees with its plain "
+                                 f"version: {leg}")
+    if launches != 4:
+        raise AssertionError(f"klt_track: {launches} launches for 4 legs")
+
+    feats = KLT_B * KLT_N * cfg.pyramid_levels * 4
+    win_px = cfg.window_size ** 2
+    n_bytes = feats * KLT_BYTES_PER_FEATURE_LEVEL
+    n_ops = feats * win_px * KLT_OPS_PER_PIXEL_LEVEL
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    row = {"name": "klt_track", "route": "cuda",
+           "source": "semantic_slam_mapping_torch/csrc/klt_track.cu",
+           "replaces": None, "library_ms": None,
+           "shape": [KLT_B, KLT_N], "legs": legs,
+           "launches_per_quad_match": launches,
+           "ms": klt_kernel_ms(w),
+           "wrapper_ms": cuda_ms(lambda: klt_legs(w, klt.track_pyramid),
+                                 batch=5),
+           "plain_ms": cuda_ms(lambda: klt_legs(w, klt.track_pyramid_plain),
+                               warmup=1, reps=5),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "ops": n_ops}
+    emit("kernels", **{k: v for k, v in row.items() if k != "legs"})
     return row
 
 
@@ -1693,12 +1819,14 @@ def phase_window(card: str, device: str = "cuda", height: int = H,
     sgbm._aggregate = recording_aggregate
     try:
         sgm_cuda.sgm_aggregate4.launches = 0
+        klt.track_pyramid.launches = 0
         t = time.time()
         outs = [system.process_window(lefts[w], rights[w],
                                       semantics=labels[w]) for w in wins]
         sync()
         window_s = time.time() - t
-        launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches}
+        launches = {"sgm_aggregate4": sgm_cuda.sgm_aggregate4.launches,
+                    "klt_track": klt.track_pyramid.launches}
     finally:
         sgbm._aggregate = aggregate
     ate = ate_rmse(np.stack(system.trajectory), gt)
@@ -1757,6 +1885,9 @@ def phase_window(card: str, device: str = "cuda", height: int = H,
                        f"sgm_aggregate4 launched "
                        f"{launches['sgm_aggregate4']} times for "
                        f"{len(wins)} windows, expected 2 each"))
+        checks.append((launches["klt_track"] == 4 * len(wins),
+                       f"klt_track launched {launches['klt_track']} times "
+                       f"for {len(wins)} windows, expected 4 each"))
     for ok, msg in checks:
         if not ok:
             raise AssertionError(f"window: {msg}")
@@ -2704,6 +2835,7 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     row = phase_kernels()
+    klt_row = phase_klt()
     cli = phase_cli(info["card"])
     rgbd = phase_rgbd(info["card"])
     with tempfile.TemporaryDirectory() as weights_dir:
@@ -2731,7 +2863,8 @@ def main(argv=None) -> int:
         "mesh": mesh["launches"][row["name"]],
         "train-segnet": train["sgm_launches"],
         "train-segnet --mesh": mesh["training"]["cli"]["sgm_launches"]}
-    print(json.dumps({"kernels": [row]}), flush=True)
+    klt_row["launches_by_path"] = {"window": window["launches"]["klt_track"]}
+    print(json.dumps({"kernels": [row, klt_row]}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)
     return 0
@@ -2758,6 +2891,7 @@ def run_phases(names) -> int:
     info = phase_device()
     phase_build()
     runs = {"kernels": lambda: phase_kernels(),
+            "klt": lambda: phase_klt(),
             "window": lambda: phase_window(info["card"]),
             "epoch": lambda: phase_epoch(info["card"]),
             "golden": lambda: phase_golden(info["card"]),

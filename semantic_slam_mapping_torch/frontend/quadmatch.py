@@ -47,7 +47,8 @@ def quad_match(cur_left: torch.Tensor, cur_right: torch.Tensor,
     if cur_disparity is not None:
         d0 = torch.clamp(im.bilinear_sample(cur_disparity, lc), min=0.0)
         stereo_init = torch.stack([-d0, torch.zeros_like(d0)], dim=-1)
-    t_init = (flow_prior[..., None, :].expand_as(lc)
+    # contiguous: the KLT kernel reads the init as a dense (..., N, 2)
+    t_init = (flow_prior[..., None, :].expand_as(lc).contiguous()
               if flow_prior is not None else None)
 
     leg_rc = klt.track_pyramid(pyr["lc"], pyr["rc"], lc, kcfg, stereo_init)

@@ -3,10 +3,9 @@ its plain PyTorch version.
 
 The kernel (``csrc/sgm_aggregate.cu``) replaces the TPU kernel
 ``ops/pallas/sgm_pallas.py::sgm_bidir_pallas`` of the JAX package; its
-source note gives the design and the bound. It is compiled on first use
-with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the root of
-the checkout, keyed by a hash of the source and flags, and loaded with
-``ctypes``. Nothing is built when this module is imported.
+source note gives the design and the bound. It is compiled on first use by
+``ops/cuda/nvcc.build`` and loaded with ``ctypes``. Nothing is built when
+this module is imported.
 
 :func:`sgm_aggregate4` returns, in the volume's dtype, the Pallas kernel's
 contract ``r(r(vf) + r(vb)) + r(r(hf) + r(hb))``: each directional path
@@ -25,47 +24,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "sgm_aggregate.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from semantic_slam_mapping_torch.ops.cuda import nvcc
+
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sgm_aggregate.cu"
 MAX_DISPARITIES = 96
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
 
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel into a shared library (once per source hash) and
     return its path. ``verbose`` adds ``-Xptxas -v`` to a fresh build."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsgm_aggregate_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    subprocess.run(cmd, check=True, timeout=120)
-    os.replace(tmp, lib)
-    return lib
+    return nvcc.build(SOURCE, verbose)
 
 
 @functools.cache
